@@ -1,0 +1,344 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py        (from the repository root; needs one card)
+
+Phases, in order; any failure propagates and the script exits non-zero
+without printing its result line:
+
+  1. the card (name and power limit from nvidia-smi), torch and CUDA versions;
+  2. build the CUDA kernels from damvsnet_tpu_torch/ops/kernels/csrc
+     (one nvcc per source, started together) and print their register use;
+  3. K1, the fused adaptive cost volume, against its plain PyTorch version
+     at each stage's full-width serving shape, fp32 (TF32 off) and bf16;
+  4. K2, the probability-volume statistics, likewise;
+  5. the serving cascade (1152x864, N=5, ndepths 64/32/8, bf16, the
+     trained weights of weights/bench_ckpt.npz) answering 3 requests
+     through DepthRunner, with every launch counter set to 0 just before
+     and read just after; then the same forward on the plain versions in
+     bf16 and, with TF32 off, in fp32.
+
+Times come from CUDA events after warm-up (kernels) or from the host clock
+around a synchronised request (the cascade). Each bound is the larger of
+the bytes the function must move over 3.35 TB/s and its fp32 operations
+over 67 TFLOP/s (H100 SXM data sheet), computed from this run's shapes.
+The last two lines are the kernels' JSON summary and the device line.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+HEIGHT, WIDTH, NVIEWS, D0, SEED = 864, 1152, 5, 192, 3
+NDEPTHS = (64, 32, 8)
+STAGE_C = (32, 16, 8)
+REQUESTS = 3
+# K1 runs on the scene's FeatureNet maps with the trained weights.
+# Tolerance on (kernel - plain) / (1 + |plain|), elementwise. fp32: both
+# evaluate the projective geometry in fp32 in another order, a few ulps of
+# a pixel coordinate near 1000 (~1e-4 px), amplified by the features'
+# gradient (2e-3 holds even for white-noise features). bf16: both sum in
+# fp32 and round once; one bf16 step is 2^-7.
+K1_TOL = {"fp32": 2e-3, "bf16": 2.0 ** -7 + 2e-3}
+# K2 (fp32 only, as on the main path): prob to 1e-6; depth and sigma3 to
+# 1e-4 of sums over up to 64 hypotheses of depths near 5..10; confidence
+# flips where trunc(sum p*d) lands on the other side of an integer.
+K2_TOL = {"prob_volume": 1e-6, "depth": 1e-4, "variance": 1e-4}
+K2_MAX_FLIP_SHARE = 1e-4
+DEPTH_TOL_SHARE = 0.002  # p999 |depth - plain depth| <= 0.2 % of the range
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def nvidia_smi():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+
+def cuda_ms(fn, iters, warmup=2):
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def p999(x):
+    """99.9th percentile of a large tensor (top-k, as quantile() caps its
+    input size)."""
+    import torch
+    flat = x.reshape(-1).float()
+    k = max(1, math.ceil(flat.numel() * 0.001))
+    return float(torch.topk(flat, k).values.min())
+
+
+def stage_geometry(sample, stage, dev):
+    import torch
+    from damvsnet_tpu_torch.model.cascade import fuse_projection_matrices
+    proj = torch.as_tensor(sample["proj_matrices"][f"stage{stage}"][None], device=dev)
+    fused = fuse_projection_matrices(proj)
+    return fused[:, 0], [fused[:, v] for v in range(1, fused.shape[1])]
+
+
+def stage_features(sample, model, dev, dtype):
+    """The FeatureNet's NHWC maps of the scene's N views, per stage: the
+    tensors the main path hands K1."""
+    import torch
+    imgs = torch.as_tensor(sample["imgs"], device=dev)  # [N, H, W, 3]
+    feats = model.feature(imgs.permute(0, 3, 1, 2).to(dtype))
+    return [feats[f"stage{s}"].permute(0, 2, 3, 1).contiguous()[:, None]
+            for s in (1, 2, 3)]  # [N, B=1, h, w, C]
+
+
+def sweep(sample, stage_idx, dev, gen):
+    """Stage 1: the uniform [B, D] sweep; stages 2/3: per-pixel hypotheses
+    drawn over the whole sweep range (a wider spread than ADIA's)."""
+    import torch
+    h, w = HEIGHT >> (2 - stage_idx), WIDTH >> (2 - stage_idx)
+    d = NDEPTHS[stage_idx]
+    lo, hi = float(sample["depth_values"][0]), float(sample["depth_values"][-1])
+    if stage_idx == 0:
+        return torch.linspace(lo, hi, d, device=dev)[None]
+    dv = lo + (hi - lo) * torch.rand(1, d, h, w, generator=gen, device=dev)
+    return dv.sort(dim=1).values
+
+
+def k1_bound_ms(b, d, h, w, c, v, elem, per_pixel):
+    bytes_ = ((v + 1) * b * h * w * c * elem + b * d * (h * w if per_pixel else 1) * 4
+              + b * d * h * w * c * elem)
+    # per voxel and view: geometry ~30, 4 taps x C fma, d2 and the weight
+    # dot 4C, weight net ~8, accumulate 2C; then the 1/(N-1) scale
+    ops = b * d * h * w * (v * (14 * c + 60) + c)
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k2_bound_ms(b, d, h, w, per_pixel):
+    n = b * h * w
+    bytes_ = n * d * 4 * 2 + (n * d if per_pixel else b * d) * 4 + 3 * n * 4
+    ops = n * d * 17 + n * 4  # 4 passes over d, the 4-tap window
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_k1(sample, model, dev):
+    import torch
+    from damvsnet_tpu_torch.ops.kernels import fused_costvol as K
+    from damvsnet_tpu_torch.nn.aggweight import fold_aggweight
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feats = {tag: stage_features(sample, model, dev, dtype)
+             for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16))}
+    rows = []
+    for stage_idx in range(3):
+        ref_p, src_p = stage_geometry(sample, stage_idx + 1, dev)
+        dv = sweep(sample, stage_idx, dev, gen)
+        wts = fold_aggweight(model.DepthNet.weight_net[stage_idx])
+        for tag in ("fp32", "bf16"):
+            feas = feats[tag][stage_idx]
+            args = (feas[0], list(feas[1:]), ref_p, src_p, dv, *wts)
+            got = K.fused_adaptive_cost_volume(*args)
+            torch.cuda.synchronize()
+            want = K.fused_adaptive_cost_volume_plain(*args)
+            diff = (got.float() - want.float()).abs()
+            rel = float((diff / (1 + want.float().abs())).max())
+            row = {"stage": stage_idx + 1, "dtype": tag, "shape": list(got.shape),
+                   "max_abs": float(diff.max()), "p999_abs": p999(diff),
+                   "max_rel": rel, "tol_rel": K1_TOL[tag],
+                   "ms": cuda_ms(lambda: K.fused_adaptive_cost_volume(*args), 20),
+                   "plain_ms": cuda_ms(lambda: K.fused_adaptive_cost_volume_plain(*args), 3, 1)}
+            b, d, h, w, c = got.shape
+            row["bound_ms"], row["bound_by"] = k1_bound_ms(
+                b, d, h, w, c, NVIEWS - 1, got.element_size(), dv.dim() == 4)
+            print("K1", json.dumps(row), flush=True)
+            check(rel <= K1_TOL[tag], f"K1 stage {stage_idx + 1} {tag}: "
+                  f"max rel {rel} > {K1_TOL[tag]}")
+            rows.append(row)
+            del got, want, diff
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_k2(sample, dev):
+    import torch
+    from damvsnet_tpu_torch.ops.kernels.probstats import prob_volume_stats_fused
+    from damvsnet_tpu_torch.ops.regression import prob_volume_stats
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+    for stage_idx in range(3):
+        h, w = HEIGHT >> (2 - stage_idx), WIDTH >> (2 - stage_idx)
+        d = NDEPTHS[stage_idx]
+        cost32 = 3 * torch.randn(1, d, h, w, generator=gen, device=dev)
+        dv = sweep(sample, stage_idx, dev, gen)
+        # the stats tail is fp32 in both modes; "bf16" feeds a cost that was
+        # a bf16 regularizer output, as the bf16 cascade does
+        for tag, cost in (("fp32", cost32), ("bf16", cost32.bfloat16().float())):
+            got = prob_volume_stats_fused(cost, dv)
+            torch.cuda.synchronize()
+            want = prob_volume_stats(cost, dv)
+            row = {"stage": stage_idx + 1, "dtype": tag, "shape": [1, d, h, w]}
+            for key, tol in K2_TOL.items():
+                err = float((got[key] - want[key]).abs().max())
+                row[f"max_abs_{key}"] = err
+                check(err <= tol, f"K2 stage {stage_idx + 1} {tag} {key}: {err} > {tol}")
+            flips = int(((got["photometric_confidence"]
+                          - want["photometric_confidence"]).abs() > 1e-5).sum())
+            row["conf_flips"] = flips
+            row["max_abs"] = max(row[f"max_abs_{k}"] for k in K2_TOL)
+            row["ms"] = cuda_ms(lambda: prob_volume_stats_fused(cost, dv), 50)
+            row["plain_ms"] = cuda_ms(lambda: prob_volume_stats(cost, dv), 10, 1)
+            row["bound_ms"], row["bound_by"] = k2_bound_ms(1, d, h, w, dv.dim() == 4)
+            print("K2", json.dumps(row), flush=True)
+            check(flips <= max(2, K2_MAX_FLIP_SHARE * h * w),
+                  f"K2 stage {stage_idx + 1} {tag}: {flips} confidence flips")
+            rows.append(row)
+    return rows
+
+
+def phase_cascade(sample, model, dev):
+    import numpy as np
+    import torch
+    from damvsnet_tpu_torch.infer import DepthRunner
+    from damvsnet_tpu_torch.ops.kernels import fused_costvol, probstats
+    batch = {"imgs": sample["imgs"][None],
+             "proj_matrices": {k: v[None] for k, v in sample["proj_matrices"].items()},
+             "depth_values": sample["depth_values"][None]}
+    rng = float(sample["depth_values"][-1] - sample["depth_values"][0])
+    runner = DepthRunner(model, device=dev)
+    model.compute_dtype, model.plain = torch.bfloat16, False
+    t0 = time.perf_counter()
+    runner(batch)  # warm-up: cuDNN's first-call setup
+    warm_ms = (time.perf_counter() - t0) * 1e3
+
+    counters = (fused_costvol.fused_adaptive_cost_volume, probstats.prob_volume_stats_fused)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, out = [], None
+    for _ in range(REQUESTS):
+        t0 = time.perf_counter()
+        out = runner(batch)
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print("cascade", json.dumps({"warmup_ms": warm_ms, "request_ms": times,
+                                 "peak_mem_gib": peak_gib, "launches": launches}),
+          flush=True)
+    for name, n in launches.items():
+        check(n == 3 * REQUESTS, f"{name} launched {n} times in {REQUESTS} "
+              f"requests, expected {3 * REQUESTS}")
+    depth = out["depth"]
+    check(depth.shape == (1, HEIGHT, WIDTH), f"depth shape {depth.shape}")
+    check(bool(np.isfinite(depth).all()), "non-finite depth")
+    gt = sample["depth"]["stage3"][None]
+    print("cascade vs scene depth", json.dumps({
+        "median_abs_err": float(np.median(np.abs(depth - gt))),
+        "depth_range": rng}), flush=True)
+
+    results = {"bf16": depth}
+    model.plain = True
+    plain = {"bf16": runner(batch)["depth"]}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model.compute_dtype = torch.float32
+    model.plain = False
+    results["fp32"] = runner(batch)["depth"]
+    model.plain = True
+    plain["fp32"] = runner(batch)["depth"]
+    model.plain, model.compute_dtype = False, torch.bfloat16
+    parity = {}
+    for tag in ("bf16", "fp32"):
+        diff = np.abs(results[tag] - plain[tag])
+        parity[tag] = {"p999_abs": float(np.quantile(diff, 0.999)),
+                       "max_abs": float(diff.max()),
+                       "tol": DEPTH_TOL_SHARE * rng}
+    print("cascade vs plain", json.dumps(parity), flush=True)
+    for tag, p in parity.items():
+        check(p["p999_abs"] <= p["tol"], f"cascade {tag}: depth p999 "
+              f"{p['p999_abs']} > {p['tol']}")
+    return launches, float(np.mean(times))
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    smi = nvidia_smi()
+    print(f"card: {smi}", flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}", flush=True)
+    dev = torch.device("cuda")
+
+    from damvsnet_tpu_torch.data.synthetic import make_synthetic_sample
+    from damvsnet_tpu_torch.model import CascadeMVSNet
+    from damvsnet_tpu_torch.ops.kernels import build
+    from damvsnet_tpu_torch.utils.weights import load_bench_weights
+
+    t0 = time.perf_counter()
+    logs = build.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'nothing'}",
+          flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}", flush=True)
+
+    sample = make_synthetic_sample(height=HEIGHT, width=WIDTH, nviews=NVIEWS,
+                                   ndepths=D0, with_gt=True, seed=SEED)
+    model = CascadeMVSNet(ndepths=NDEPTHS, compute_dtype=torch.bfloat16, device=dev)
+    load_bench_weights(model, "weights/bench_ckpt.npz")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        k1 = phase_k1(sample, model, dev)
+        k2 = phase_k2(sample, dev)
+    launches, request_ms = phase_cascade(sample, model, dev)
+
+    def summary(name, rows, source, replaces, counter):
+        main_rows = [r for r in rows if r["dtype"] == "bf16"]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches[counter],
+                "max_abs_err": max(r["max_abs"] for r in main_rows),
+                "ms": sum(r["ms"] for r in main_rows),
+                "plain_ms": sum(r["plain_ms"] for r in main_rows),
+                "bound_ms": sum(r["bound_ms"] for r in main_rows),
+                "bound_by": max(main_rows, key=lambda r: r["bound_ms"])["bound_by"],
+                "library_ms": None}
+
+    kernels = [
+        summary("fused_adaptive_cost_volume", k1,
+                "damvsnet_tpu_torch/ops/kernels/csrc/fused_costvol.cu",
+                "damvsnet_tpu/ops/pallas/fused_costvol.py:471",
+                "fused_adaptive_cost_volume"),
+        summary("prob_volume_stats", k2,
+                "damvsnet_tpu_torch/ops/kernels/csrc/probstats.cu",
+                "damvsnet_tpu/ops/pallas/probstats.py:88",
+                "prob_volume_stats_fused"),
+    ]
+    print(f"cascade: {request_ms:.3f} ms per request (bf16, {smi})", flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"card: {smi}", flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,155 @@
+"""CascadeMVSNet inference forward (counterpart of
+damvsnet_tpu/model/cascade.py in the shipped serving configuration).
+
+  views:     fpn FeatureNet, all N views as one batch
+  per stage: GeoFeatureFusion replaces the ref feature at stages 2/3
+             -> ADIA depth sampling at full resolution, clamped into the
+                input sweep range -> trilinear snap to stage resolution
+                (stage 1: the uniform sweep is built at stage resolution
+                directly, and never materialized)
+             -> fused adaptive cost volume (CUDA kernel K1)
+             -> CostRegNet 3-D U-Net
+             -> fp32 stats tail: softmax, soft-argmin depth, confidence,
+                3-sigma band (CUDA kernel K2)
+  handoff:   depth and sigma bilinearly upsampled to input resolution.
+
+The clamp is always on (``clamp_samples=True`` of the shipped serving
+configuration). Inputs keep the JAX layout: images [B, N, H, W, 3],
+proj_matrices {stage: [B, N, 2, 4, 4]} (extrinsics in slot 0, stage K in
+slot 1), depth_values [B, D0]. The per-stage output dicts carry the JAX
+keys (depth, photometric_confidence, variance, prob_volume, depth_values);
+the top level repeats stage 3. There is no ``sampler_overflow``: the fused
+kernel gathers every tap.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+
+from ..nn.aggweight import AggWeightNetVolume, fold_aggweight
+from ..nn.costreg import CostRegNet
+from ..nn.feature import FeatureNet
+from ..nn.geofusion import GeoFeatureFusion
+from ..ops.kernels.fused_costvol import (fused_adaptive_cost_volume,
+                                         fused_adaptive_cost_volume_plain)
+from ..ops.kernels.probstats import prob_volume_stats_fused
+from ..ops.regression import prob_volume_stats
+from ..ops.resize import resize_bilinear, resize_trilinear_depth
+from ..ops.sampling import uncertainty_aware_samples
+from ..ops.warp import matmul_fp32
+from ..utils.device import resolve_device
+
+STAGE_CHANNELS = (32, 16, 8)  # FPN output channels, stages 1..3
+
+
+def fuse_projection_matrices(proj: torch.Tensor) -> torch.Tensor:
+    """[..., 2, 4, 4] (extrinsics, K-padded) -> fused [..., 4, 4] with
+    rows 0..2 = K @ E[:3, :4], in true fp32."""
+    ext = proj[..., 0, :, :].float()
+    top = matmul_fp32(proj[..., 1, :3, :3], ext[..., :3, :4])
+    return torch.cat([top, ext[..., 3:4, :]], dim=-2)
+
+
+class DepthNet(nn.Module):
+    """Holds the per-stage AggWeightNets under the reference's names
+    (``DepthNet.weight_net.{i}``)."""
+
+    def __init__(self, channels: Sequence[int]):
+        super().__init__()
+        self.weight_net = nn.ModuleList(AggWeightNetVolume(c) for c in channels)
+
+
+class CascadeMVSNet(nn.Module):
+    """The 3-stage cascade, inference only.
+
+    ndepths: hypotheses per stage. compute_dtype: the convolutions' dtype
+    (bf16 to serve, fp32 for parity); the stats tail is always fp32.
+    plain: run the kernels' plain PyTorch versions instead of the CUDA
+    kernels — a reference for checking the kernels on the card; nothing
+    selects it on its own. device: where the parameters live, CUDA unless
+    the caller names another; raises if CUDA is absent.
+    """
+
+    def __init__(self, ndepths: Sequence[int] = (64, 32, 8),
+                 compute_dtype: torch.dtype = torch.float32,
+                 plain: bool = False, device=None):
+        super().__init__()
+        if len(ndepths) != 3:
+            raise ValueError(f"the cascade has 3 stages, got ndepths={ndepths}")
+        self.ndepths = tuple(ndepths)
+        self.compute_dtype = compute_dtype
+        self.plain = plain
+        self.feature = FeatureNet(base_channels=8)
+        self.GeoFeatureFusionNet = GeoFeatureFusion()
+        self.cost_regularization = nn.ModuleList(
+            CostRegNet(c, base_channels=8) for c in STAGE_CHANNELS)
+        self.DepthNet = DepthNet(STAGE_CHANNELS)
+        self.to(resolve_device(device))
+        self.eval()
+
+    def forward(self, imgs: torch.Tensor, proj_matrices: dict,
+                depth_values: torch.Tensor) -> dict:
+        if self.training:
+            raise RuntimeError("the port's CascadeMVSNet is inference only; "
+                               "call .eval()")
+        costvol = (fused_adaptive_cost_volume_plain if self.plain
+                   else fused_adaptive_cost_volume)
+        stats = prob_volume_stats if self.plain else prob_volume_stats_fused
+        b, n, height, width, _ = imgs.shape
+        depth_values = depth_values.float()
+        dmin = depth_values.min(dim=1).values[:, None, None, None]
+        dmax = depth_values.max(dim=1).values[:, None, None, None]
+
+        # all views as one batch; the NCHW permutation of the NHWC images is
+        # a channels_last view, so every feature map stays channels_last
+        x = imgs.reshape(b * n, height, width, 3).permute(0, 3, 1, 2)
+        features = self.feature(x.to(self.compute_dtype))
+
+        outputs = {}
+        depth = sigma = None
+        for stage_idx, ndepth in enumerate(self.ndepths):
+            name = f"stage{stage_idx + 1}"
+            stage_h, stage_w = height >> (2 - stage_idx), width >> (2 - stage_idx)
+            # NHWC view of the channels_last map: free on the card
+            # (contiguous() is a no-op there; a copy only where a conv
+            # returns another layout)
+            feat = features[name].permute(0, 2, 3, 1).contiguous()
+            feat = feat.view(b, n, stage_h, stage_w, feat.shape[-1])
+            ref_fea = feat[:, 0]
+            src_feas = [feat[:, v] for v in range(1, n)]
+
+            if stage_idx >= 1:
+                ref_img = resize_bilinear(imgs[:, 0].float(), (stage_h, stage_w))
+                depth_in = resize_bilinear(depth[..., None],
+                                           (depth.shape[1] * 2, depth.shape[2] * 2))
+                # the fused feature comes back NCHW from the transposed
+                # convs, so this NHWC contiguous() is a copy (8 MB at
+                # stage 2, 16 MB at stage 3 in bf16 at 1152x864)
+                ref_fea = self.GeoFeatureFusionNet(
+                    ref_img.permute(0, 3, 1, 2), depth_in.permute(0, 3, 1, 2),
+                    depth_values, stage_idx, ref_fea.permute(0, 3, 1, 2),
+                ).permute(0, 2, 3, 1).contiguous()
+                cur_depth = resize_bilinear(depth[..., None], (height, width))[..., 0][:, None]
+                cur_var = resize_bilinear(sigma[..., None], (height, width))[..., 0][:, None]
+                samples = uncertainty_aware_samples(cur_depth, cur_var, ndepth,
+                                                    height, width)
+                samples = torch.minimum(torch.maximum(samples, dmin), dmax)
+                samples = resize_trilinear_depth(samples, (ndepth, stage_h, stage_w))
+            else:
+                samples = uncertainty_aware_samples(depth_values, None, ndepth,
+                                                    stage_h, stage_w)
+
+            fused = fuse_projection_matrices(proj_matrices[name])
+            w1, b1, w2, b2 = fold_aggweight(self.DepthNet.weight_net[stage_idx])
+            volume = costvol(ref_fea, src_feas, fused[:, 0],
+                             [fused[:, v] for v in range(1, n)], samples,
+                             w1, b1, w2, b2)  # [B, D, h, w, C]
+            cost = self.cost_regularization[stage_idx](volume.permute(0, 4, 1, 2, 3))
+            out = stats(cost[:, 0].float(), samples)
+            out["depth_values"] = samples
+            depth, sigma = out["depth"], out["variance"]
+            outputs[name] = out
+        outputs.update(outputs["stage3"])
+        return outputs

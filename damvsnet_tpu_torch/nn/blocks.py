@@ -1,0 +1,111 @@
+"""Conv / BN / ReLU building blocks (counterpart of damvsnet_tpu/nn/blocks.py).
+
+Conv2d, Conv3d and Deconv3d blocks with BatchNorm (eps 1e-5, torch momentum
+0.1 == flax 0.9) and ReLU (every block on the serving path has one), named
+``.conv`` / ``.bn`` as the reference state_dict names them; the 2-D
+(transposed) conv blocks of geo fusion are ``SeqConvBnReLU``, named
+``.0`` / ``.1``. Torch's ``ConvTranspose`` with ``output_padding`` is
+what the JAX package's ``conv_transpose_torch`` emulates, so the
+transposed convolutions here are torch's own.
+
+Inference only, mirroring the JAX fold: a convolution runs in the input's
+dtype (the compute dtype, weights cast to it), BatchNorm is folded to one
+per-channel affine computed in fp32 from the running statistics, and the
+result is cast back to the compute dtype.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+BN_EPS = 1e-5
+BN_MOMENTUM = 0.1  # == flax momentum 0.9
+
+
+def conv(x: torch.Tensor, m: nn.Conv2d | nn.Conv3d) -> torch.Tensor:
+    """Apply a Conv2d/Conv3d module in the input's dtype."""
+    w = m.weight.to(x.dtype)
+    b = None if m.bias is None else m.bias.to(x.dtype)
+    fn = F.conv2d if x.dim() == 4 else F.conv3d
+    return fn(x, w, b, m.stride, m.padding)
+
+
+def deconv(x: torch.Tensor, m: nn.ConvTranspose2d | nn.ConvTranspose3d) -> torch.Tensor:
+    """Apply a ConvTranspose2d/3d module in the input's dtype."""
+    w = m.weight.to(x.dtype)
+    b = None if m.bias is None else m.bias.to(x.dtype)
+    fn = F.conv_transpose2d if x.dim() == 4 else F.conv_transpose3d
+    return fn(x, w, b, m.stride, m.padding, m.output_padding)
+
+
+def bn_fold(y: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
+            relu: bool) -> torch.Tensor:
+    """Running-statistics BatchNorm as y*s + t in fp32, cast back to y's
+    dtype (the order of the JAX fold), then optionally ReLU."""
+    s = torch.rsqrt(bn.running_var.float() + BN_EPS)
+    t = -bn.running_mean.float() * s
+    g = bn.weight.float()
+    s, t = s * g, t * g + bn.bias.float()
+    shape = (1, -1) + (1,) * (y.dim() - 2)
+    out = torch.empty_like(y)
+    torch.addcmul(t.view(shape), y, s.view(shape), out=out)
+    return out.relu_() if relu else out
+
+
+def batch_norm(nd: int, channels: int):
+    cls = nn.BatchNorm2d if nd == 2 else nn.BatchNorm3d
+    return cls(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+def conv_bn_relu(x: torch.Tensor, m: nn.Module,
+                 bn: nn.modules.batchnorm._BatchNorm) -> torch.Tensor:
+    """A (transposed) convolution module, folded BN and ReLU."""
+    transposed = isinstance(m, nn.modules.conv._ConvTransposeNd)
+    y = deconv(x, m) if transposed else conv(x, m)
+    return bn_fold(y, bn, relu=True)
+
+
+class _ConvBlock(nn.Module):
+    nd = 2
+    transposed = False
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, output_padding: int = 0):
+        super().__init__()
+        if self.transposed:
+            cls = nn.ConvTranspose2d if self.nd == 2 else nn.ConvTranspose3d
+            self.conv = cls(in_channels, out_channels, kernel_size, stride,
+                            padding, output_padding, bias=False)
+        else:
+            cls = nn.Conv2d if self.nd == 2 else nn.Conv3d
+            self.conv = cls(in_channels, out_channels, kernel_size, stride,
+                            padding, bias=False)
+        self.bn = batch_norm(self.nd, out_channels)
+
+    def forward(self, x):
+        return conv_bn_relu(x, self.conv, self.bn)
+
+
+class Conv2dBlock(_ConvBlock):
+    """Conv2d + BN + ReLU. Parity: models/module.py:28-68."""
+    nd = 2
+
+
+class Conv3dBlock(_ConvBlock):
+    """Conv3d + BN + ReLU. Parity: models/module.py:117-159."""
+    nd = 3
+
+
+class Deconv3dBlock(_ConvBlock):
+    """ConvTranspose3d + BN + ReLU. Parity: models/module.py:161-202."""
+    nd = 3
+    transposed = True
+
+
+class SeqConvBnReLU(nn.Sequential):
+    """A (transposed) conv + BN + ReLU named as the reference's
+    ``nn.Sequential`` blocks name it: ``.0`` the convolution, ``.1`` BN."""
+
+    def forward(self, x):
+        return conv_bn_relu(x, self[0], self[1])

@@ -1,0 +1,135 @@
+"""Kernel K1 (fused adaptive cost volume): the port's plain version and its
+wrapper on CPU tensors against the JAX Pallas kernel (interpret mode) and
+the JAX XLA path, on the same numpy inputs and the same weight net.
+
+Tolerance 5e-5, as tests/test_fused_costvol.py holds the Pallas kernel to
+the XLA path: the three implementations order the geometry and the sums
+differently in fp32. The Pallas kernel needs 128 % C == 0 and H % 8 == 0.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from damvsnet_tpu.nn.aggweight import AggWeightNetVolume as JAggWeight
+from damvsnet_tpu.nn.aggweight import fold_aggweight as jfold
+from damvsnet_tpu.ops.costvol import build_cost_volume as jbuild
+from damvsnet_tpu.ops.pallas.fused_costvol import fused_adaptive_cost_volume as jfused
+from damvsnet_tpu_torch.nn.aggweight import AggWeightNetVolume, fold_aggweight
+from damvsnet_tpu_torch.ops.costvol import build_cost_volume
+from damvsnet_tpu_torch.ops.kernels import fused_costvol
+from torch_helpers import fused_projs
+
+torch.set_num_threads(1)
+
+B, H, W, C, D, V = 1, 24, 32, 8, 4, 3
+
+
+@pytest.fixture(scope="module")
+def wnets():
+    """The JAX weight net with non-trivial BN statistics, and the port's
+    net holding the same weights."""
+    rs = np.random.default_rng(1)
+    net = JAggWeight()
+    variables = net.init(jax.random.PRNGKey(1), jnp.zeros((1, 1, 1, 1, C)), False)
+    params = jax.tree_util.tree_map(np.asarray, variables["params"])
+    stats = {blk: {"_NormAct_0": {"BatchNorm_0": {
+        "mean": rs.normal(0, 0.3, 1).astype(np.float32),
+        "var": rs.uniform(0.5, 2.0, 1).astype(np.float32)}}}
+        for blk in ("Conv3dBlock_0", "Conv3dBlock_1")}
+    for blk in stats:
+        bn = params[blk]["_NormAct_0"]["BatchNorm_0"]
+        bn["scale"] = rs.uniform(0.5, 1.5, 1).astype(np.float32)
+        bn["bias"] = rs.normal(0, 0.3, 1).astype(np.float32)
+    jvars = {"params": params, "batch_stats": stats}
+
+    port = AggWeightNetVolume(C).eval()
+    with torch.no_grad():
+        for j, blk in enumerate(("Conv3dBlock_0", "Conv3dBlock_1")):
+            tb = port.w_net[j]
+            k = params[blk]["Conv_0"]["kernel"]  # [1,1,1,I,O]
+            tb.conv.weight.copy_(torch.from_numpy(k.transpose(4, 3, 0, 1, 2).copy()))
+            bn = params[blk]["_NormAct_0"]["BatchNorm_0"]
+            st = stats[blk]["_NormAct_0"]["BatchNorm_0"]
+            tb.bn.weight.copy_(torch.from_numpy(bn["scale"]))
+            tb.bn.bias.copy_(torch.from_numpy(bn["bias"]))
+            tb.bn.running_mean.copy_(torch.from_numpy(st["mean"]))
+            tb.bn.running_var.copy_(torch.from_numpy(st["var"]))
+    return net, jvars, port
+
+
+def test_fold_aggweight_matches_module(rng, wnets):
+    """The port's fold equals its module, and JAX's fold."""
+    _, jvars, port = wnets
+    x = rng.random((2, C, 3, 4, 5)).astype(np.float32)
+    with torch.no_grad():
+        want = port(torch.from_numpy(x))
+    w1, b1, w2, b2 = fold_aggweight(port)
+    got = fused_costvol.folded_weight_fn(w1, b1, w2, b2)(
+        torch.from_numpy(x).permute(0, 2, 3, 4, 1)).permute(0, 4, 1, 2, 3)
+    np.testing.assert_allclose(got.detach().numpy(), want.numpy(), atol=1e-5)
+    for a, b in zip((w1, b1, w2, b2), jfold(jvars)):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=1e-6)
+
+
+@pytest.mark.parametrize("per_pixel", [False, True])
+def test_plain_and_wrapper_match_jax(rng, wnets, per_pixel):
+    net, jvars, port = wnets
+    projs = fused_projs(B, V + 1, H, W)
+    feas = [rng.standard_normal((B, H, W, C)).astype(np.float32)
+            for _ in range(V + 1)]
+    if per_pixel:
+        dv = (4 + 4 * rng.random((B, D, H, W))).astype(np.float32)
+    else:
+        dv = np.linspace(4, 8, D, dtype=np.float32)[None]
+
+    jw = lambda vol: net.apply(jvars, vol, False)
+    want_xla = np.asarray(jbuild(
+        jnp.asarray(feas[0]), [jnp.asarray(f) for f in feas[1:]],
+        jnp.asarray(projs[0]), [jnp.asarray(p) for p in projs[1:]],
+        jnp.asarray(dv), mode="adaptive", weight_fn=jw, sampler="xla"))
+    want_pallas, overflow = jfused(
+        jnp.asarray(feas[0]), [jnp.asarray(f) for f in feas[1:]],
+        jnp.asarray(projs[0]), [jnp.asarray(p) for p in projs[1:]],
+        jnp.asarray(dv), *jfold(jvars), wb=W, band_rows=H, interpret=True)
+    assert int(np.asarray(overflow).sum()) == 0
+
+    t = [torch.from_numpy(f) for f in feas]
+    tp = [torch.from_numpy(p) for p in projs]
+    w1, b1, w2, b2 = fold_aggweight(port)
+    launches = fused_costvol.fused_adaptive_cost_volume.launches
+    with torch.no_grad():
+        got_wrapper = fused_costvol.fused_adaptive_cost_volume(
+            t[0], t[1:], tp[0], tp[1:], torch.from_numpy(dv), w1, b1, w2, b2)
+        # the plain version with the unfolded module as its weight net
+        got_module = build_cost_volume(
+            t[0], t[1:], tp[0], tp[1:], torch.from_numpy(dv),
+            lambda d2: port(d2.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1))
+    assert fused_costvol.fused_adaptive_cost_volume.launches == launches
+    assert got_wrapper.shape == (B, D, H, W, C)
+    for got in (got_wrapper.numpy(), got_module.numpy()):
+        np.testing.assert_allclose(got, want_xla, atol=5e-5)
+        np.testing.assert_allclose(got, np.asarray(want_pallas), atol=5e-5)
+
+
+def test_wrapper_keeps_feature_dtype(rng, wnets):
+    """bf16 features give a bf16 volume, summed in fp32 (the kernel's
+    contract): it equals the fp32 sum of the bf16-rounded inputs, rounded
+    once."""
+    _, _, port = wnets
+    projs = [torch.from_numpy(p) for p in fused_projs(B, V + 1, H, W)]
+    feas = [torch.from_numpy(rng.standard_normal((B, H, W, C)).astype(np.float32))
+            .to(torch.bfloat16) for _ in range(V + 1)]
+    dv = torch.linspace(4, 8, D)[None]
+    w = fold_aggweight(port)
+    with torch.no_grad():
+        got = fused_costvol.fused_adaptive_cost_volume(
+            feas[0], feas[1:], projs[0], projs[1:], dv, *w)
+        ref = fused_costvol.fused_adaptive_cost_volume(
+            feas[0].float(), [f.float() for f in feas[1:]], projs[0], projs[1:],
+            dv, *w)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  ref.to(torch.bfloat16).float().numpy())

@@ -1,0 +1,65 @@
+"""The port stands alone: it imports neither JAX nor anything of the JAX
+package, and its entry points never carry on quietly on the CPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import damvsnet_tpu_torch
+from damvsnet_tpu_torch.infer import DepthRunner
+from damvsnet_tpu_torch.model import CascadeMVSNet
+
+torch.set_num_threads(1)
+
+PKG = Path(damvsnet_tpu_torch.__file__).resolve().parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "damvsnet_tpu")
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield path, ".".join(parts)
+
+
+def test_no_forbidden_import_statement():
+    """AST scan of every module's absolute imports."""
+    bad = []
+    for path, _ in _modules():
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            bad += [f"{path.name}: {n}" for n in names
+                    if n.split(".")[0] in FORBIDDEN]
+    assert not bad
+
+
+def test_importing_every_module_loads_no_jax():
+    """A fresh interpreter imports every module of the port, then finds no
+    JAX and nothing of the JAX package in sys.modules."""
+    mods = [m for _, m in _modules()]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+            "print(len(sys.modules)); sys.exit(1 if bad else 0)\n")
+    env = {**os.environ, "PYTHONPATH": str(PKG.parent)}
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(PKG.parent),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("entry", ["model", "runner"])
+def test_entry_points_raise_without_cuda(monkeypatch, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if entry == "model":
+            CascadeMVSNet(ndepths=(8, 8, 8))
+        else:
+            DepthRunner(CascadeMVSNet(ndepths=(8, 8, 8), device="cpu"))

@@ -1,0 +1,98 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: they need an NVIDIA GPU with nvcc and skip elsewhere. The
+file imports no JAX, so on a machine without it run it as
+``DAMVSNET_TEST_TPU=1 python -m pytest tests/test_torch_kernels_cuda.py -m cuda``
+(the variable keeps tests/conftest.py from importing JAX).
+
+Tolerances: fp32 runs with TF32 off; the kernel and the plain version order
+the projective geometry and the sums differently, so values differ by fp32
+rounding amplified by the feature gradient at the sampled point (1e-4 here,
+with smooth features). In bf16 both sum in fp32 and round once, so they
+differ by at most one bf16 step (2^-7 relative) where the fp32 sums straddle
+a rounding boundary.
+"""
+import pytest
+import torch
+
+from damvsnet_tpu_torch.ops.kernels import fused_costvol, probstats
+from damvsnet_tpu_torch.ops.regression import prob_volume_stats
+from torch_helpers import fused_projs
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc to build the kernels)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(dev, dtype, c, per_pixel, b=1, h=24, w=40, d=6, views=4, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    fused = [torch.from_numpy(f).to(dev)
+             for f in fused_projs(b, views, h, w, seed=seed)]
+    # smooth features: a low-resolution field upsampled, as real feature
+    # maps are smooth at the scale of the sampling error
+    feas = [torch.nn.functional.interpolate(
+        torch.randn(b, c, h // 4, w // 4, generator=g), size=(h, w),
+        mode="bilinear").permute(0, 2, 3, 1).contiguous().to(dev, dtype)
+        for _ in range(views)]
+    if per_pixel:
+        dv = 4 + 4 * torch.rand(b, d, h, w, generator=g)
+    else:
+        dv = torch.linspace(4, 8, d)[None].repeat(b, 1)
+    w1 = torch.rand(c, generator=g) - 0.3
+    scal = torch.tensor([0.1, 0.7, -0.05])
+    return feas, fused, dv.to(dev), w1.to(dev), *scal.to(dev)
+
+
+@pytest.mark.parametrize("c", [8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_pixel", [False, True])
+def test_fused_costvol_matches_plain(dev, c, dtype, per_pixel):
+    feas, projs, dv, w1, b1, w2, b2 = _inputs(dev, dtype, c, per_pixel)
+    args = (feas[0], feas[1:], projs[0], projs[1:], dv, w1, b1, w2, b2)
+    n0 = fused_costvol.fused_adaptive_cost_volume.launches
+    got = fused_costvol.fused_adaptive_cost_volume(*args)
+    torch.cuda.synchronize()
+    assert fused_costvol.fused_adaptive_cost_volume.launches == n0 + 1
+    want = fused_costvol.fused_adaptive_cost_volume_plain(*args)
+    assert got.dtype == dtype and got.shape == want.shape
+    rel = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    tol = 1e-4 + rel * want.float().abs()
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+def test_fused_costvol_rejects_bad_input(dev):
+    feas, projs, dv, w1, b1, w2, b2 = _inputs(dev, torch.float32, 8, False)
+    with pytest.raises(ValueError):
+        fused_costvol.fused_adaptive_cost_volume(
+            feas[0][..., :4].contiguous(), [f[..., :4].contiguous() for f in feas[1:]],
+            projs[0], projs[1:], dv, w1[:4], b1, w2, b2)
+    with pytest.raises(ValueError):
+        fused_costvol.fused_adaptive_cost_volume(
+            feas[0], feas[1:], projs[0], projs[1:], dv.cpu(), w1, b1, w2, b2)
+
+
+@pytest.mark.parametrize("per_pixel", [False, True])
+def test_probstats_matches_plain(dev, per_pixel):
+    g = torch.Generator().manual_seed(1)
+    b, d, h, w = 2, 32, 24, 40
+    cost = (3 * torch.randn(b, d, h, w, generator=g)).to(dev)
+    if per_pixel:
+        dv = (4 + 4 * torch.rand(b, d, h, w, generator=g)).sort(dim=1).values.to(dev)
+    else:
+        dv = torch.linspace(4, 8, d)[None].repeat(b, 1).to(dev)
+    n0 = probstats.prob_volume_stats_fused.launches
+    got = probstats.prob_volume_stats_fused(cost, dv)
+    torch.cuda.synchronize()
+    assert probstats.prob_volume_stats_fused.launches == n0 + 1
+    want = prob_volume_stats(cost, dv)
+    for key, atol in (("prob_volume", 1e-6), ("depth", 1e-5), ("variance", 1e-5)):
+        torch.testing.assert_close(got[key], want[key], atol=atol, rtol=0)
+    flips = (got["photometric_confidence"] - want["photometric_confidence"]).abs() > 1e-5
+    assert int(flips.sum()) <= 2

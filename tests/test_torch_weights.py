@@ -1,0 +1,77 @@
+"""The weight bridge between the JAX package's flax checkpoints and the
+port's state_dict (reference DA-MVSNet names)."""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from damvsnet_tpu.utils.transplant import transplant_cascade
+from damvsnet_tpu_torch.model import CascadeMVSNet
+from damvsnet_tpu_torch.utils.weights import load_bench_weights, state_dict_from_flax
+
+torch.set_num_threads(1)
+
+CKPT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "weights", "bench_ckpt.npz")
+# the reference constructs two stage-1 geo-fusion heads that never run; the
+# port and the JAX package omit them, transplant_cascade still reads them
+DEAD_GEO_HEADS = ("rgbdepth_decoder_stage1", "final_decoder_stage1")
+
+
+def _flat(variables):
+    leaves = jax.tree_util.tree_flatten_with_path(variables)[0]
+    return {"/".join(str(getattr(k, "key", k)) for k in kp): np.asarray(v)
+            for kp, v in leaves}
+
+
+@pytest.fixture(scope="module")
+def ckpt():
+    with np.load(CKPT) as npz:
+        return {k: npz[k] for k in npz.files}
+
+
+@pytest.fixture(scope="module")
+def loaded_model():
+    return load_bench_weights(CascadeMVSNet(device="cpu"), CKPT)
+
+
+def test_bench_ckpt_loads_every_key(ckpt, loaded_model):
+    """Every one of the checkpoint's keys lands in the full port model and
+    every port weight gets one (strict load, nothing left over)."""
+    assert len(ckpt) == 460
+    sd = loaded_model.state_dict()
+    n_bn = sum(k.endswith("num_batches_tracked") for k in sd)
+    assert len(sd) - n_bn == len(ckpt)
+    np.testing.assert_array_equal(
+        sd["feature.conv0.0.conv.weight"].numpy(),
+        ckpt["params/feature/Conv2dBlock_0/Conv_0/kernel"].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(
+        sd["cost_regularization.0.conv7.conv.weight"].numpy(),
+        ckpt["params/cost_reg_stage1/Deconv3dBlock_0/kernel"].transpose(3, 4, 0, 1, 2))
+
+
+def test_transplant_of_port_state_dict_gives_back_ckpt(ckpt, loaded_model):
+    sd = {k: v.numpy() for k, v in loaded_model.state_dict().items()}
+    for head in DEAD_GEO_HEADS:
+        p = f"GeoFeatureFusionNet.{head}"
+        sd[f"{p}.0.weight"] = np.zeros((1, 1, 1, 1), np.float32)
+        for s in ("weight", "bias", "running_mean", "running_var"):
+            sd[f"{p}.1.{s}"] = np.zeros((1,), np.float32)
+        sd[f"{p}.1.num_batches_tracked"] = np.zeros((), np.int64)
+    back = _flat(transplant_cascade(sd))
+    extra = {k for k in back if any(h in k for h in DEAD_GEO_HEADS)}
+    assert set(back) - extra == set(ckpt)
+    for k, v in ckpt.items():
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+
+
+def test_bridge_raises_on_keys_left_over(ckpt):
+    with pytest.raises(ValueError, match="left over"):
+        state_dict_from_flax({**ckpt, "params/feature/extra/kernel": np.zeros(1)})
+    missing = dict(ckpt)
+    del missing["params/cost_reg_stage2/prob/kernel"]
+    with pytest.raises(KeyError, match="cost_reg_stage2/prob"):
+        state_dict_from_flax(missing)
