@@ -15,10 +15,20 @@ without printing its result line:
      trained weights of weights/bench_ckpt.npz) answering 3 requests
      through DepthRunner, with every launch counter set to 0 just before
      and read just after; then the same forward on the plain versions in
-     bf16 and, with TF32 off, in fp32.
+     bf16 and, with TF32 off, in fp32;
+  6. K3, the backward of K1, against torch autograd of K1's plain version
+     at each stage's full-width training shape (B=4, 512x640, N=5), fp32
+     (TF32 off) and bf16, on the scenes' FeatureNet maps, the trained
+     weight net and a seeded cotangent; K1 is timed at the same shapes;
+  7. the training step (512x640, B=4, N=5, D0=192, ndepths 64/32/8, bf16,
+     the trained weights, Adam under the warmup schedule, CPC on): 1 warm
+     step, then 3 timed steps through make_train_step with every launch
+     counter set to 0 just before and read just after (K1 and K3 3 times a
+     step, K2 never); then one batch's loss and gradients on the kernels
+     against the plain versions, in fp32 with TF32 off.
 
 Times come from CUDA events after warm-up (kernels) or from the host clock
-around a synchronised request (the cascade). Each bound is the larger of
+around synchronised work (requests, steps). Each bound is the larger of
 the bytes the function must move over 3.35 TB/s and its fp32 operations
 over 67 TFLOP/s (H100 SXM data sheet), computed from this run's shapes.
 The last two lines are the kernels' JSON summary and the device line.
@@ -50,6 +60,34 @@ K1_TOL = {"fp32": 2e-3, "bf16": 2.0 ** -7 + 2e-3}
 K2_TOL = {"prob_volume": 1e-6, "depth": 1e-4, "variance": 1e-4}
 K2_MAX_FLIP_SHARE = 1e-4
 DEPTH_TOL_SHARE = 0.002  # p999 |depth - plain depth| <= 0.2 % of the range
+# training shapes (scripts/bench_train.py:48)
+TRAIN_H, TRAIN_W, TRAIN_B, TRAIN_STEPS = 512, 640, 4, 3
+# K3 against autograd of the plain version, per feature-gradient tensor:
+#   relative L2 error ||kernel - plain|| / ||plain|| <= l2, and elementwise
+#   |kernel - plain| <= rel * |plain| + share * max|plain|.
+# fp32: the two evaluate the projective geometry in another order (a few
+# ulps of a pixel coordinate, K1's reason above) and every source-gradient
+# tap is weighted by it; the kernel's fp32 atomics add in an order that
+# changes from run to run. A first H100 run measured relative L2 errors up
+# to 1.3e-3 and a largest elementwise excess of 8.6e-3 of the max (stage 1
+# dsrc, at a few pixels); the elementwise bound is loose on purpose, the
+# L2 bound is the test. bf16: the plain version runs in fp32 on the same bf16-rounded
+# inputs; the kernel computes in fp32 and rounds dref and dsrc once to bf16
+# (half a step, 2^-8 relative; ~2^-8/sqrt(3) in L2).
+K3_TOL = {"fp32": {"l2": 2e-3, "rel": 0.0, "share": 2e-2},
+          "bf16": {"l2": 2.0 ** -8 + 2e-3, "rel": 2.0 ** -8, "share": 2e-2}}
+# the weight-net partials are fp32 sums over every voxel and view in both
+# dtypes: 1e-3 of the largest
+K3_WNET_TOL = 1e-3
+# The training step on the kernels against the plain versions (fp32, TF32
+# off). The loss: rtol 1e-4. The gradient: its relative L2 error over all
+# parameters <= 1e-2. Per tensor the gradient is not held tighter: it is
+# piecewise smooth, and where rounding moves a ReLU input across zero many
+# tensors' gradients jump by percents (scripts/grad_sensitivity_torch.py
+# shows it on the CPU), so the run prints each tensor's max |d| / max |g|
+# instead.
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_L2 = 1e-2
 
 
 def check(cond, msg):
@@ -273,6 +311,209 @@ def phase_cascade(sample, model, dev):
     return launches, float(np.mean(times))
 
 
+def k3_bound_ms(b, d, h, w, c, v, elem, per_pixel):
+    """The features and the cotangent read once, dref and dsrc written once
+    in the feature dtype; per voxel and view the forward's ~(14C + 60)
+    operations recomputed plus ~(14C + 10) for the backward (dL/dd2, dref,
+    dw1 and the four taps' scatter)."""
+    bytes_ = ((v + 1) * b * h * w * c * elem * 2 + b * d * (h * w if per_pixel else 1) * 4
+              + b * d * h * w * c * elem)
+    ops = b * d * h * w * v * (28 * c + 70)
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def train_batch(seeds):
+    """A collated batch of synthetic scenes at the training width."""
+    from damvsnet_tpu_torch.data.common import collate
+    from damvsnet_tpu_torch.data.synthetic import make_synthetic_sample
+    return collate([make_synthetic_sample(height=TRAIN_H, width=TRAIN_W, nviews=NVIEWS,
+                                          ndepths=D0, seed=k) for k in seeds])
+
+
+def phase_k3(model, dev):
+    import torch
+    from damvsnet_tpu_torch.model.cascade import fuse_projection_matrices
+    from damvsnet_tpu_torch.nn.aggweight import fold_aggweight
+    from damvsnet_tpu_torch.ops.kernels import fused_costvol as K
+    batch = train_batch(range(TRAIN_B))
+    imgs = torch.as_tensor(batch["imgs"], device=dev)  # [B, N, H, W, 3]
+    b, n = imgs.shape[:2]
+    lo = torch.as_tensor(batch["depth_values"][:, 0], device=dev)
+    hi = torch.as_tensor(batch["depth_values"][:, -1], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    feats = {}
+    for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        x = imgs.reshape(b * n, TRAIN_H, TRAIN_W, 3).permute(0, 3, 1, 2).to(dtype)
+        nhwc = [m.permute(0, 2, 3, 1).contiguous() for m in model.feature(x).values()]
+        feats[tag] = [m.view(b, n, *m.shape[1:]) for m in nhwc]  # stages 1..3
+    rows = []
+    for stage_idx in range(3):
+        h, w = TRAIN_H >> (2 - stage_idx), TRAIN_W >> (2 - stage_idx)
+        d = NDEPTHS[stage_idx]
+        proj = torch.as_tensor(batch["proj_matrices"][f"stage{stage_idx + 1}"], device=dev)
+        fused = fuse_projection_matrices(proj)
+        ref_p, src_p = fused[:, 0], [fused[:, v] for v in range(1, n)]
+        if stage_idx == 0:
+            t = torch.linspace(0, 1, d, device=dev)[None]
+            dv = lo[:, None] + (hi - lo)[:, None] * t
+        else:
+            u = torch.rand(b, d, h, w, generator=gen, device=dev).sort(dim=1).values
+            dv = lo[:, None, None, None] + (hi - lo)[:, None, None, None] * u
+        wts = fold_aggweight(model.DepthNet.weight_net[stage_idx])
+        cot32 = torch.randn(b, d, h, w, STAGE_C[stage_idx], generator=gen, device=dev)
+        for tag in ("fp32", "bf16"):
+            feas = feats[tag][stage_idx]
+            ref, srcs = feas[:, 0].contiguous(), [feas[:, v].contiguous() for v in range(1, n)]
+            cot = cot32.to(ref.dtype)
+            args = (ref, srcs, ref_p, src_p, dv, *wts)
+            got = K.fused_adaptive_cost_volume_backward(cot, *args)
+            torch.cuda.synchronize()
+            plain_args = (ref.float(), [s.float() for s in srcs], ref_p, src_p, dv, *wts)
+            want = K.fused_adaptive_cost_volume_backward_plain(cot.float(), *plain_args)
+            tol = K3_TOL[tag]
+            row = {"stage": stage_idx + 1, "dtype": tag, "shape": [b, d, h, w, ref.shape[-1]]}
+            failures = []
+            for name, g, wnt in [("dref", got[0], want[0])] + [
+                    (f"dsrc{v}", gs, ws) for v, (gs, ws) in enumerate(zip(got[1], want[1]))]:
+                g, wnt = g.float(), wnt.float()
+                err = (g - wnt).abs()
+                scale = max(float(wnt.abs().max()), 1e-30)
+                excess = float((err - tol["rel"] * wnt.abs()).max()) / scale
+                l2 = float(torch.linalg.vector_norm(g - wnt) / torch.linalg.vector_norm(wnt))
+                row[f"max_abs_{name}"] = float(err.max())
+                row[f"excess_{name}"] = excess
+                row[f"rel_l2_{name}"] = l2
+                if excess > tol["share"] or l2 > tol["l2"]:
+                    failures.append(f"{name}: excess {excess} (limit {tol['share']}), "
+                                    f"relative L2 {l2} (limit {tol['l2']})")
+            gw = torch.cat([got[2].reshape(-1), *(x.reshape(1) for x in got[3:])])
+            ww = torch.cat([want[2].reshape(-1), *(x.reshape(1) for x in want[3:])])
+            row["wnet_rel_err"] = float((gw - ww).abs().max()) / max(float(ww.abs().max()), 1e-30)
+            if row["wnet_rel_err"] > K3_WNET_TOL:
+                failures.append(f"weight net: {row['wnet_rel_err']} > {K3_WNET_TOL}")
+            row["max_abs"] = max(v for k, v in row.items() if k.startswith("max_abs_"))
+            row["ms"] = cuda_ms(lambda: K.fused_adaptive_cost_volume_backward(cot, *args), 5)
+            row["k1_ms"] = cuda_ms(lambda: K.fused_adaptive_cost_volume(*args), 5)
+            row["plain_ms"] = cuda_ms(
+                lambda: K.fused_adaptive_cost_volume_backward_plain(cot, *args), 1, 1)
+            row["bound_ms"], row["bound_by"] = k3_bound_ms(
+                b, d, h, w, ref.shape[-1], n - 1, ref.element_size(), dv.dim() == 4)
+            print("K3", json.dumps(row), flush=True)
+            check(not failures, f"K3 stage {stage_idx + 1} {tag}: {failures}")
+            rows.append(row)
+            del got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def grads_of_one_step(model, batch, plain):
+    """Loss and gradients of one training forward + backward on ``batch``
+    (a device batch), from the weights and statistics the model holds."""
+    import torch
+    from damvsnet_tpu_torch.losses import cas_mvsnet_loss
+    model.plain = plain
+    model.zero_grad(set_to_none=True)
+    out = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+    total, _, _ = cas_mvsnet_loss(out, batch["imgs"], batch["proj_matrices"],
+                                  batch["depth"], batch["mask"], use_cpc=True)
+    total.backward()
+    model.plain = False
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    del out
+    torch.cuda.synchronize()
+    return float(total.detach()), grads
+
+
+def phase_train(dev):
+    import torch
+    from damvsnet_tpu_torch.model import CascadeMVSNet
+    from damvsnet_tpu_torch.ops.kernels import fused_costvol, probstats
+    from damvsnet_tpu_torch.train.loop import batch_to_device, make_train_step
+    from damvsnet_tpu_torch.train.schedule import make_optimizer
+    from damvsnet_tpu_torch.train.state import TrainState
+    from damvsnet_tpu_torch.utils.weights import load_bench_weights
+
+    model = CascadeMVSNet(ndepths=NDEPTHS, compute_dtype=torch.bfloat16, device=dev)
+    load_bench_weights(model, "weights/bench_ckpt.npz")
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    optimizer, scheduler = make_optimizer(model.parameters(), 1e-3, "10,12,14:2",
+                                          iters_per_epoch=1000)
+    state = TrainState(model, optimizer, scheduler)
+    step = make_train_step(device=dev)
+    batches = [train_batch(range(TRAIN_B * i, TRAIN_B * (i + 1)))
+               for i in range(TRAIN_STEPS + 1)]
+
+    t0 = time.perf_counter()
+    warm = step(state, batches[0])
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    check(math.isfinite(float(warm["loss"])), f"warm-up step loss {float(warm['loss'])}")
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+
+    counters = (fused_costvol.fused_adaptive_cost_volume,
+                fused_costvol.fused_adaptive_cost_volume_backward,
+                probstats.prob_volume_stats_fused)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = sum(int(not torch.equal(p.detach(), before[k]))
+                for k, p in model.named_parameters())
+    print("train", json.dumps({"warmup_ms": warm_ms, "step_ms": step_ms,
+                               "peak_mem_gib": peak_gib, "launches": launches,
+                               "params_moved": moved,
+                               "params": len(before), "metrics": losses}), flush=True)
+    for m in losses:
+        check(all(math.isfinite(v) for v in m.values()), f"non-finite step metrics {m}")
+    check(moved > 0, "no parameter moved in the timed steps")
+    per_step = {"fused_adaptive_cost_volume": 3, "fused_adaptive_cost_volume_backward": 3,
+                "prob_volume_stats_fused": 0}
+    for name, n in launches.items():
+        check(n == per_step[name] * TRAIN_STEPS, f"{name} launched {n} times in "
+              f"{TRAIN_STEPS} steps, expected {per_step[name] * TRAIN_STEPS}")
+
+    # one batch, the same weights: kernels against plain versions, fp32
+    del state, optimizer, scheduler, step
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model.compute_dtype = torch.float32
+    batch = batch_to_device(batches[1], dev)
+    results = {}
+    for plain in (False, True):
+        model.load_state_dict(start)
+        model.train()
+        results[plain] = grads_of_one_step(model, batch, plain)
+        torch.cuda.empty_cache()
+    (lk, gk), (lp, gp) = results[False], results[True]
+    num = sum(float(((gk[k] - gp[k]) ** 2).sum()) for k in gk)
+    den = sum(float((gp[k] ** 2).sum()) for k in gp)
+    l2 = math.sqrt(num / max(den, 1e-30))
+    per_tensor = sorted(float((gk[k] - gp[k]).abs().max()) / max(float(gp[k].abs().max()), 1e-30)
+                        for k in gk)
+    finite = all(bool(torch.isfinite(g).all()) for g in list(gk.values()) + list(gp.values()))
+    parity = {"loss_kernels": lk, "loss_plain": lp, "grad_rel_l2": l2,
+              "per_tensor_rel_max": {"median": per_tensor[len(per_tensor) // 2],
+                                     "p90": per_tensor[int(0.9 * len(per_tensor))],
+                                     "max": per_tensor[-1]},
+              "tol": {"loss_rtol": STEP_LOSS_RTOL, "grad_rel_l2": STEP_GRAD_L2}}
+    print("train vs plain (fp32)", json.dumps(parity), flush=True)
+    check(finite, "non-finite gradient in the fp32 step")
+    check(abs(lk - lp) <= STEP_LOSS_RTOL * abs(lp), f"fp32 step loss {lk} vs plain {lp}")
+    check(l2 <= STEP_GRAD_L2, f"fp32 step gradient relative L2 error {l2} > {STEP_GRAD_L2}")
+    return launches, float(sum(step_ms) / len(step_ms)), peak_gib
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -309,11 +550,22 @@ def main():
         k1 = phase_k1(sample, model, dev)
         k2 = phase_k2(sample, dev)
     launches, request_ms = phase_cascade(sample, model, dev)
+    del sample
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.no_grad():
+        k3 = phase_k3(model, dev)
+    del model
+    torch.cuda.empty_cache()
+    train_launches, step_ms, train_peak = phase_train(dev)
 
     def summary(name, rows, source, replaces, counter):
         main_rows = [r for r in rows if r["dtype"] == "bf16"]
+        by_path = {"serving": launches.get(counter, 0),
+                   "training": train_launches.get(counter, 0)}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches[counter],
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": max(r["max_abs"] for r in main_rows),
                 "ms": sum(r["ms"] for r in main_rows),
                 "plain_ms": sum(r["plain_ms"] for r in main_rows),
@@ -330,8 +582,14 @@ def main():
                 "damvsnet_tpu_torch/ops/kernels/csrc/probstats.cu",
                 "damvsnet_tpu/ops/pallas/probstats.py:88",
                 "prob_volume_stats_fused"),
+        summary("fused_adaptive_cost_volume_backward", k3,
+                "damvsnet_tpu_torch/ops/kernels/csrc/fused_costvol_bwd.cu",
+                "damvsnet_tpu/ops/pallas/fused_costvol_vjp.py:373",
+                "fused_adaptive_cost_volume_backward"),
     ]
     print(f"cascade: {request_ms:.3f} ms per request (bf16, {smi})", flush=True)
+    print(f"training: {step_ms:.3f} ms per step, peak {train_peak:.2f} GiB "
+          f"(512x640, B=4, N=5, bf16, {smi})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,173 @@
+"""Training CLI; counterpart of damvsnet_tpu/cli/train.py (flag surface of
+the reference train.py:19-77, less the JAX package's mesh, XLA-cache and
+debug-NaN flags).
+
+    python -m damvsnet_tpu_torch.cli.train --dataset synthetic \
+        --logdir ./checkpoints --epochs 16 --batch_size 4 --nviews 5 \
+        --numdepth 192 --loadckpt weights/bench_ckpt.npz
+
+It trains the fused configuration (fpn, geo fusion, adaptive aggregation
+with the folded weight net, detached handoff, clamped samples; the fused
+cost volume K1 with its backward K3 on the card) on CUDA, or on the device
+``--device`` names. Flags for what the port does not have yet raise,
+naming the ROADMAP item.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+_VARIANTS = "ROADMAP Queue 1, the variants slice"
+_UNSUPPORTED = {
+    "agg_mode variance": f"variance aggregation ({_VARIANTS})",
+    "use_fmt": "FMT (ROADMAP Queue 1 item 11)",
+    "no_geo_fusion": f"cascade without geo fusion ({_VARIANTS})",
+    "grad_method undetach": f"undetached stage handoff ({_VARIANTS})",
+    "share_cr": f"shared cost regularizer ({_VARIANTS})",
+    "cr_base_chs": f"cost regularizer of widths other than 8,8,8 ({_VARIANTS})",
+    "profile_dir": "torch.profiler trace of training (ROADMAP Queue 1 item 14)",
+}
+
+
+def build_parser():
+    p = argparse.ArgumentParser("damvsnet-tpu-torch train")
+    p.add_argument("--mode", default="train", choices=["train"])
+    p.add_argument("--model", default="mvsnet")
+    p.add_argument("--dataset", default="synthetic")
+    p.add_argument("--trainpath", default=None)
+    p.add_argument("--testpath", default=None)
+    p.add_argument("--trainlist", default=None)
+    p.add_argument("--testlist", default=None)
+    p.add_argument("--epochs", type=int, default=16)
+    p.add_argument("--lr", type=float, default=0.001)
+    p.add_argument("--lrepochs", default="10,12,14:2")
+    p.add_argument("--wd", type=float, default=0.0)
+    p.add_argument("--nviews", type=int, default=5)
+    p.add_argument("--batch_size", type=int, default=4)
+    p.add_argument("--numdepth", type=int, default=192)
+    p.add_argument("--interval_scale", type=float, default=1.06)
+    p.add_argument("--summary_freq", type=int, default=50)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--logdir", default="./checkpoints")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--loadckpt", default=None,
+                   help="weights only: a checkpoint of this CLI (.pt) or a "
+                        "flax flat-path .npz such as weights/bench_ckpt.npz")
+    p.add_argument("--ndepths", default="64,32,8")
+    p.add_argument("--depth_inter_r", default="4,2,1")
+    p.add_argument("--cr_base_chs", default="8,8,8")
+    p.add_argument("--dlossw", default="0.5,1.0,2.0")
+    p.add_argument("--share_cr", action="store_true")
+    p.add_argument("--grad_method", default="detach", choices=["detach", "undetach"])
+    p.add_argument("--agg_mode", default="adaptive", choices=["adaptive", "variance"])
+    p.add_argument("--use_fmt", action="store_true")
+    p.add_argument("--no_geo_fusion", action="store_true")
+    p.add_argument("--no_cpc", action="store_true")
+    p.add_argument("--dtype", default="auto", choices=["auto", "bf16", "f32"],
+                   help="compute dtype: auto = bf16 on CUDA, f32 elsewhere")
+    p.add_argument("--fused_train", action="store_true",
+                   help="accepted for the JAX CLI's surface: the port always "
+                        "trains through the fused cost volume (K1/K3)")
+    p.add_argument("--num_workers", type=int, default=4)
+    p.add_argument("--grad_accum", type=int, default=1)
+    p.add_argument("--save_freq", type=int, default=0,
+                   help="a mid-epoch checkpoint (with the data cursor) every "
+                        "N steps; --resume continues from it mid-epoch. "
+                        "0 = per-epoch only (reference parity)")
+    p.add_argument("--profile_dir", default=None)
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda; raises without one)")
+    return p
+
+
+def check_supported(args) -> None:
+    """Raise on a flag that asks for what the port does not have yet."""
+    asked = {
+        "agg_mode variance": args.agg_mode == "variance",
+        "use_fmt": args.use_fmt,
+        "no_geo_fusion": args.no_geo_fusion,
+        "grad_method undetach": args.grad_method == "undetach",
+        "share_cr": args.share_cr,
+        "cr_base_chs": tuple(int(x) for x in args.cr_base_chs.split(",") if x) != (8, 8, 8),
+        "profile_dir": args.profile_dir is not None,
+    }
+    for flag, on in asked.items():
+        if on:
+            raise NotImplementedError(f"--{flag}: the port has no {_UNSUPPORTED[flag]}")
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    check_supported(args)
+
+    import torch
+
+    from ..data import find_dataset_def
+    from ..data.common import DataLoader
+    from ..model import CascadeMVSNet
+    from ..train.loop import Trainer
+    from ..train.schedule import make_optimizer
+    from ..train.state import TrainState, latest_checkpoint, restore_checkpoint
+    from ..utils.device import resolve_device
+    from ..utils.weights import load_bench_weights
+
+    dataset_cls = find_dataset_def(args.dataset)
+    device = resolve_device(args.device)
+    torch.manual_seed(args.seed)
+    ndepths = tuple(int(x) for x in args.ndepths.split(",") if x)
+    dlossw = tuple(float(x) for x in args.dlossw.split(",") if x)
+    if args.dtype == "auto":
+        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    else:
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[args.dtype]
+    model = CascadeMVSNet(ndepths=ndepths, compute_dtype=dtype, device=device)
+
+    train_dataset = dataset_cls(args.trainpath, args.trainlist, "train",
+                                args.nviews, args.numdepth, args.interval_scale)
+    val_dataset = (dataset_cls(args.testpath or args.trainpath,
+                               args.testlist or args.trainlist, "val",
+                               args.nviews, args.numdepth, args.interval_scale)
+                   if args.testlist else None)
+    train_loader = DataLoader(train_dataset, args.batch_size, shuffle=True,
+                              seed=args.seed, num_workers=args.num_workers)
+    optimizer, scheduler = make_optimizer(model.parameters(), args.lr, args.lrepochs,
+                                          len(train_loader), args.wd)
+    state = TrainState(model, optimizer, scheduler)
+
+    os.makedirs(args.logdir, exist_ok=True)
+    first_batch = 0
+    if args.resume:
+        ckpt = latest_checkpoint(args.logdir)
+        if ckpt:
+            state, first_batch = restore_checkpoint(ckpt, state)
+            print(f"resumed from {ckpt} at epoch {state.epoch}"
+                  + (f" (mid-epoch, from batch {first_batch})" if first_batch else ""))
+    elif args.loadckpt:
+        if args.loadckpt.endswith(".npz"):
+            load_bench_weights(model, args.loadckpt)
+        else:
+            restore_checkpoint(args.loadckpt, state, weights_only=True)
+        print(f"loaded weights from {args.loadckpt}")
+
+    trainer = Trainer(state, args.logdir, dlossw=dlossw, use_cpc=not args.no_cpc,
+                      summary_freq=args.summary_freq, save_freq=args.save_freq,
+                      grad_accum=args.grad_accum, device=device)
+    for epoch in range(state.epoch, args.epochs):
+        t0 = time.time()
+        # the loader's order is named by the epoch, so a resumed run sees
+        # the interrupted run's batches
+        means = trainer.train_epoch(train_loader.iter_epoch(epoch, skip=first_batch),
+                                    first_batch=first_batch)
+        first_batch = 0
+        print(f"epoch {epoch} done in {time.time() - t0:.1f}s: "
+              + " ".join(f"{k}={v:.4f}" for k, v in means.items()))
+        if val_dataset is not None:
+            val_loader = DataLoader(val_dataset, args.batch_size,
+                                    num_workers=args.num_workers)
+            trainer.eval_epoch(val_loader.iter_epoch(0))
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

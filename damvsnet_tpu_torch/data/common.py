@@ -1,0 +1,105 @@
+"""Collation and a host-side loader with background prefetch; counterpart
+of damvsnet_tpu/data/common.py (without its cv2 augmentation helpers).
+
+Samples are dicts of numpy arrays in NHWC; ``collate`` stacks a leading
+batch axis. The loader's order is a function of (seed, epoch) only, so a
+run resumed from a mid-epoch checkpoint sees the same batches as the run
+it replaces: the caller names the epoch (``iter_epoch``) rather than
+counting calls, and batches before the cursor are skipped by index,
+before any sample is loaded.
+"""
+from __future__ import annotations
+
+import concurrent.futures as cf
+import queue
+import threading
+from typing import Iterator, Sequence
+
+import numpy as np
+
+
+def collate(samples: Sequence[dict]) -> dict:
+    """Stack a list of sample dicts into one batch dict (recurses dicts)."""
+    out = {}
+    for k, v in samples[0].items():
+        if isinstance(v, dict):
+            out[k] = collate([s[k] for s in samples])
+        elif isinstance(v, np.ndarray):
+            out[k] = np.stack([s[k] for s in samples])
+        elif isinstance(v, (int, float, np.floating, np.integer)):
+            out[k] = np.asarray([s[k] for s in samples])
+        else:  # strings (filenames) etc.
+            out[k] = [s[k] for s in samples]
+    return out
+
+
+class DataLoader:
+    """Shuffling, batching (the last partial batch is dropped: fixed
+    shapes) and threaded prefetch of up to ``PREFETCH`` batches."""
+
+    PREFETCH = 2
+
+    def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
+                 seed: int = 0, num_workers: int = 4):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.num_workers = num_workers
+
+    def __len__(self):
+        return len(self.dataset) // self.batch_size
+
+    def _indices(self, epoch: int):
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + epoch).shuffle(idx)
+        return idx
+
+    def iter_epoch(self, epoch: int, skip: int = 0) -> Iterator[dict]:
+        """The batches of ``epoch`` from batch ``skip`` on."""
+        idx = self._indices(epoch)
+        batches = [idx[i * self.batch_size:(i + 1) * self.batch_size]
+                   for i in range(skip, len(self))]
+        if self.num_workers <= 0:
+            for b in batches:
+                yield collate([self.dataset[int(i)] for i in b])
+            return
+
+        q: queue.Queue = queue.Queue(maxsize=self.PREFETCH)
+        stop = threading.Event()
+
+        def put(item):
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                with cf.ThreadPoolExecutor(self.num_workers) as pool:
+                    for b in batches:
+                        samples = list(pool.map(self.dataset.__getitem__, b.tolist()))
+                        if not put(collate(samples)):
+                            return
+            except Exception as e:  # handed to the consumer, raised there
+                put(e)
+                return
+            put(None)
+
+        t = threading.Thread(target=produce, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            t.join()

@@ -120,3 +120,28 @@ def make_synthetic_sample(height=128, width=160, nviews=3, ndepths=48,
         sample["depth"] = pyr
         sample["mask"] = {k: np.ones_like(v) for k, v in pyr.items()}
     return sample
+
+
+class SyntheticDataset:
+    """The synthetic scene as a dataset (damvsnet_tpu/data/synthetic.py:
+    213-230): sample k is ``make_synthetic_sample(seed=k)``. The path,
+    list and interval arguments of the real datasets are accepted and
+    unused."""
+
+    def __init__(self, datapath=None, listfile=None, mode="train", nviews=3,
+                 ndepths=48, interval_scale=1.0, height=128, width=160,
+                 length=16):
+        self.nviews = nviews
+        self.ndepths = ndepths
+        self.height = height
+        self.width = width
+        self.length = length
+        self.mode = mode
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, idx):
+        return make_synthetic_sample(self.height, self.width, self.nviews,
+                                     self.ndepths, seed=idx,
+                                     with_gt=self.mode != "test")

@@ -1,0 +1,53 @@
+"""Supervised staged depth loss (+ CPC composition); counterpart of
+damvsnet_tpu/losses/supervised.py.
+
+Per-stage masked smooth-L1 (mask > 0.5) weighted by dlossw (0.5, 1, 2)
+plus 12x the cross-view photometric-consistency loss (reference
+``cas_mvsnet_loss``, models/module.py:695-719).
+"""
+from __future__ import annotations
+
+import torch
+
+from .crossview import cross_view_loss
+
+CPC_WEIGHT = 12.0
+
+
+def smooth_l1(pred, target):
+    """Elementwise smooth-L1 (beta = 1, torch default)."""
+    diff = pred - target
+    ad = diff.abs()
+    return torch.where(ad < 1.0, 0.5 * diff * diff, ad - 0.5)
+
+
+def masked_smooth_l1(pred, target, mask):
+    """Mean smooth-L1 over mask-selected elements (torch boolean indexing
+    + reduction='mean'), as a masked sum so no shape depends on the data."""
+    m = mask.to(pred.dtype)
+    total = torch.sum(smooth_l1(pred, target) * m)
+    return total / torch.clamp(m.sum(), min=1.0)
+
+
+def cas_mvsnet_loss(stage_outputs, imgs, cams, depth_gt_ms, mask_ms,
+                    dlossw=(0.5, 1.0, 2.0), cpc_weight: float = CPC_WEIGHT,
+                    use_cpc: bool = True):
+    """Returns (total_loss, last_stage_depth_loss, cpc_loss).
+
+    stage_outputs: {"stageK": {"depth": ...}}; imgs [B,N,H,W,C];
+    cams {"stageK": [B,N,2,4,4]}; depth_gt_ms / mask_ms {"stageK": [B,h,w]}.
+    """
+    total_depth_loss = 0.0
+    depth_loss = None
+    for stage_key in sorted(k for k in stage_outputs if k.startswith("stage")):
+        depth_est = stage_outputs[stage_key]["depth"]
+        mask = mask_ms[stage_key] > 0.5
+        depth_loss = masked_smooth_l1(depth_est, depth_gt_ms[stage_key], mask)
+        stage_idx = int(stage_key.replace("stage", "")) - 1
+        total_depth_loss = total_depth_loss + dlossw[stage_idx] * depth_loss
+
+    if use_cpc:
+        cpc = cross_view_loss(stage_outputs, imgs, cams, depth_gt_ms, dlossw)
+    else:
+        cpc = torch.zeros((), device=imgs.device)
+    return total_depth_loss + cpc * cpc_weight, depth_loss, cpc

@@ -1,25 +1,36 @@
-"""CascadeMVSNet inference forward (counterpart of
-damvsnet_tpu/model/cascade.py in the shipped serving configuration).
+"""CascadeMVSNet forward, serving and training (counterpart of
+damvsnet_tpu/model/cascade.py in the shipped serving configuration and in
+the fused-VJP training configuration, ``fused_train=True``).
 
-  views:     fpn FeatureNet, all N views as one batch
-  per stage: GeoFeatureFusion replaces the ref feature at stages 2/3
-             -> ADIA depth sampling at full resolution, clamped into the
-                input sweep range -> trilinear snap to stage resolution
+  views:     fpn FeatureNet; at inference all N views as one batch, in
+             training one call per view (batch-statistics BN must not see
+             the views folded into the batch; cascade.py:309-311)
+  per stage: GeoFeatureFusion replaces the ref feature at stages 2/3,
+             conditioned on the previous stage's depth (not detached: in
+             training stages 2 and 3 send gradient back into stage 1)
+             -> ADIA depth sampling at full resolution from the DETACHED
+                previous depth and sigma, clamped into the input sweep
+                range -> trilinear snap to stage resolution
                 (stage 1: the uniform sweep is built at stage resolution
                 directly, and never materialized)
-             -> fused adaptive cost volume (CUDA kernel K1)
+             -> fused adaptive cost volume (CUDA kernel K1; in training a
+                torch.autograd.Function whose backward is kernel K3)
              -> CostRegNet 3-D U-Net
              -> fp32 stats tail: softmax, soft-argmin depth, confidence,
-                3-sigma band (CUDA kernel K2)
+                3-sigma band (CUDA kernel K2 at inference; in training the
+                plain version under autograd, as the JAX package trains
+                through its XLA stats: K2 has no backward)
   handoff:   depth and sigma bilinearly upsampled to input resolution.
 
-The clamp is always on (``clamp_samples=True`` of the shipped serving
-configuration). Inputs keep the JAX layout: images [B, N, H, W, 3],
-proj_matrices {stage: [B, N, 2, 4, 4]} (extrinsics in slot 0, stage K in
-slot 1), depth_values [B, D0]. The per-stage output dicts carry the JAX
-keys (depth, photometric_confidence, variance, prob_volume, depth_values);
-the top level repeats stage 3. There is no ``sampler_overflow``: the fused
-kernel gathers every tap.
+``model.train()`` selects training: BatchNorm uses batch statistics
+(nn/blocks.py), except in the folded weight net, which keeps its running
+statistics (nn/aggweight.py). The clamp is always on
+(``clamp_samples=True`` of both shipped configurations). Inputs keep the
+JAX layout: images [B, N, H, W, 3], proj_matrices {stage: [B, N, 2, 4, 4]}
+(extrinsics in slot 0, stage K in slot 1), depth_values [B, D0]. The
+per-stage output dicts carry the JAX keys (depth, photometric_confidence,
+variance, prob_volume, depth_values); the top level repeats stage 3. There
+is no ``sampler_overflow``: the fused kernel gathers every tap.
 """
 from __future__ import annotations
 
@@ -62,14 +73,16 @@ class DepthNet(nn.Module):
 
 
 class CascadeMVSNet(nn.Module):
-    """The 3-stage cascade, inference only.
+    """The 3-stage cascade; ``.eval()`` (the default) serves, ``.train()``
+    trains.
 
     ndepths: hypotheses per stage. compute_dtype: the convolutions' dtype
-    (bf16 to serve, fp32 for parity); the stats tail is always fp32.
-    plain: run the kernels' plain PyTorch versions instead of the CUDA
-    kernels — a reference for checking the kernels on the card; nothing
-    selects it on its own. device: where the parameters live, CUDA unless
-    the caller names another; raises if CUDA is absent.
+    (bf16 to serve and train, fp32 for parity); the stats tail is always
+    fp32. plain: run the kernels' plain PyTorch versions instead of the
+    CUDA kernels (under autograd in training) — a reference for checking
+    the kernels on the card; nothing selects it on its own. device: where
+    the parameters live, CUDA unless the caller names another; raises if
+    CUDA is absent.
     """
 
     def __init__(self, ndepths: Sequence[int] = (64, 32, 8),
@@ -91,34 +104,22 @@ class CascadeMVSNet(nn.Module):
 
     def forward(self, imgs: torch.Tensor, proj_matrices: dict,
                 depth_values: torch.Tensor) -> dict:
-        if self.training:
-            raise RuntimeError("the port's CascadeMVSNet is inference only; "
-                               "call .eval()")
         costvol = (fused_adaptive_cost_volume_plain if self.plain
                    else fused_adaptive_cost_volume)
-        stats = prob_volume_stats if self.plain else prob_volume_stats_fused
+        stats = (prob_volume_stats if self.plain or self.training
+                 else prob_volume_stats_fused)
         b, n, height, width, _ = imgs.shape
         depth_values = depth_values.float()
         dmin = depth_values.min(dim=1).values[:, None, None, None]
         dmax = depth_values.max(dim=1).values[:, None, None, None]
-
-        # all views as one batch; the NCHW permutation of the NHWC images is
-        # a channels_last view, so every feature map stays channels_last
-        x = imgs.reshape(b * n, height, width, 3).permute(0, 3, 1, 2)
-        features = self.feature(x.to(self.compute_dtype))
+        views = self._view_features(imgs)
 
         outputs = {}
         depth = sigma = None
         for stage_idx, ndepth in enumerate(self.ndepths):
             name = f"stage{stage_idx + 1}"
             stage_h, stage_w = height >> (2 - stage_idx), width >> (2 - stage_idx)
-            # NHWC view of the channels_last map: free on the card
-            # (contiguous() is a no-op there; a copy only where a conv
-            # returns another layout)
-            feat = features[name].permute(0, 2, 3, 1).contiguous()
-            feat = feat.view(b, n, stage_h, stage_w, feat.shape[-1])
-            ref_fea = feat[:, 0]
-            src_feas = [feat[:, v] for v in range(1, n)]
+            ref_fea, *src_feas = (v[name] for v in views)
 
             if stage_idx >= 1:
                 ref_img = resize_bilinear(imgs[:, 0].float(), (stage_h, stage_w))
@@ -131,8 +132,11 @@ class CascadeMVSNet(nn.Module):
                     ref_img.permute(0, 3, 1, 2), depth_in.permute(0, 3, 1, 2),
                     depth_values, stage_idx, ref_fea.permute(0, 3, 1, 2),
                 ).permute(0, 2, 3, 1).contiguous()
-                cur_depth = resize_bilinear(depth[..., None], (height, width))[..., 0][:, None]
-                cur_var = resize_bilinear(sigma[..., None], (height, width))[..., 0][:, None]
+                # the handoff is detached ("detach" grad method)
+                cur_depth = resize_bilinear(depth.detach()[..., None],
+                                            (height, width))[..., 0][:, None]
+                cur_var = resize_bilinear(sigma.detach()[..., None],
+                                          (height, width))[..., 0][:, None]
                 samples = uncertainty_aware_samples(cur_depth, cur_var, ndepth,
                                                     height, width)
                 samples = torch.minimum(torch.maximum(samples, dmin), dmax)
@@ -153,3 +157,26 @@ class CascadeMVSNet(nn.Module):
             outputs[name] = out
         outputs.update(outputs["stage3"])
         return outputs
+
+    def _view_features(self, imgs: torch.Tensor) -> list[dict]:
+        """Per view, {stage: NHWC [B, h, w, C] feature map}. At inference
+        the N views run as one batch; the NCHW permutation of the NHWC
+        images is a channels_last view, so every map stays channels_last
+        and its NHWC permutation is free. In training one FeatureNet call
+        per view, in view order (each updates the running statistics)."""
+        b, n, height, width, _ = imgs.shape
+        if self.training:
+            per_view = []
+            for v in range(n):
+                x = imgs[:, v].permute(0, 3, 1, 2).to(self.compute_dtype)
+                feats = self.feature(x.contiguous(memory_format=torch.channels_last))
+                per_view.append({k: f.permute(0, 2, 3, 1).contiguous()
+                                 for k, f in feats.items()})
+            return per_view
+        x = imgs.reshape(b * n, height, width, 3).permute(0, 3, 1, 2)
+        feats = self.feature(x.to(self.compute_dtype))
+        # contiguous() is a no-op on the card; a copy only where a conv
+        # returns another layout
+        stacked = {k: f.permute(0, 2, 3, 1).contiguous().view(
+            b, n, f.shape[2], f.shape[3], f.shape[1]) for k, f in feats.items()}
+        return [{k: f[:, v] for k, f in stacked.items()} for v in range(n)]

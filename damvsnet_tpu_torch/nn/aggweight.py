@@ -25,11 +25,17 @@ class AggWeightNetVolume(nn.Module):
 
 
 def fold_aggweight(net: AggWeightNetVolume):
-    """Collapse the net into its inference affine form
+    """Collapse the net into its affine form
     w(x) = relu(w2 * relu(<x, w1> + b1) + b2), BN running statistics folded
     into the 1x1x1 conv weights — the form the fused cost-volume kernel
     evaluates per voxel. Returns (w1 [C], b1, w2, b2) fp32 tensors on the
-    net's device; nothing leaves the device."""
+    net's device; nothing leaves the device.
+
+    This is the weight net's only form, in training too (the JAX package's
+    ``fused_train`` semantics, damvsnet_tpu/model/cascade.py:87-97): the
+    fold is differentiable, so gradient reaches the conv weights and the
+    BN weight/bias, while the two BNs keep using, and never update, their
+    running statistics (the net's forward is never called)."""
     def fold(block):
         bn = block.bn
         s = bn.weight.float() / torch.sqrt(bn.running_var.float() + BN_EPS)

@@ -8,10 +8,17 @@ Conv2d, Conv3d and Deconv3d blocks with BatchNorm (eps 1e-5, torch momentum
 what the JAX package's ``conv_transpose_torch`` emulates, so the
 transposed convolutions here are torch's own.
 
-Inference only, mirroring the JAX fold: a convolution runs in the input's
-dtype (the compute dtype, weights cast to it), BatchNorm is folded to one
-per-channel affine computed in fp32 from the running statistics, and the
-result is cast back to the compute dtype.
+A convolution runs in the input's dtype (the compute dtype, weights cast
+to it). BatchNorm (``norm_act``) follows the JAX ``_NormAct``:
+
+  * eval: folded to one per-channel affine computed in fp32 from the
+    running statistics, the result cast back to the compute dtype;
+  * training (``bn.training``): batch statistics over every axis but the
+    channel, computed in fp32 (flax ``BatchNorm(dtype=float32)``), the
+    normalized result cast back to the compute dtype. The running
+    statistics are updated with the BIASED batch variance, as flax does;
+    torch's own ``F.batch_norm`` would use the unbiased one, a factor
+    n/(n-1) apart.
 """
 from __future__ import annotations
 
@@ -39,18 +46,38 @@ def deconv(x: torch.Tensor, m: nn.ConvTranspose2d | nn.ConvTranspose3d) -> torch
     return fn(x, w, b, m.stride, m.padding, m.output_padding)
 
 
-def bn_fold(y: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
-            relu: bool) -> torch.Tensor:
-    """Running-statistics BatchNorm as y*s + t in fp32, cast back to y's
-    dtype (the order of the JAX fold), then optionally ReLU."""
+def norm_act(y: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
+             relu: bool) -> torch.Tensor:
+    """BatchNorm of y (batch statistics in training, the running-statistics
+    fold otherwise), in y's dtype, then optionally ReLU."""
+    if bn.training:
+        return _batch_stats_norm(y, bn, relu)
     s = torch.rsqrt(bn.running_var.float() + BN_EPS)
     t = -bn.running_mean.float() * s
     g = bn.weight.float()
     s, t = s * g, t * g + bn.bias.float()
     shape = (1, -1) + (1,) * (y.dim() - 2)
-    out = torch.empty_like(y)
-    torch.addcmul(t.view(shape), y, s.view(shape), out=out)
+    if torch.is_grad_enabled() and (y.requires_grad or s.requires_grad):
+        out = torch.addcmul(t.view(shape), y, s.view(shape)).to(y.dtype)
+    else:  # in y's dtype and memory format, with no fp32 temporary
+        out = torch.empty_like(y)
+        torch.addcmul(t.view(shape), y, s.view(shape), out=out)
     return out.relu_() if relu else out
+
+
+def _batch_stats_norm(y, bn, relu):
+    """Training-mode BatchNorm: normalize with the fp32 batch statistics,
+    then update the running statistics (momentum 0.1, biased variance)."""
+    y32 = y.float()
+    out = F.batch_norm(y32, None, None, bn.weight.float(), bn.bias.float(),
+                       training=True, eps=BN_EPS).to(y.dtype)
+    with torch.no_grad():
+        dims = [0] + list(range(2, y.dim()))
+        var, mean = torch.var_mean(y32, dim=dims, correction=0)
+        bn.running_mean.lerp_(mean, BN_MOMENTUM)
+        bn.running_var.lerp_(var, BN_MOMENTUM)
+        bn.num_batches_tracked.add_(1)
+    return torch.relu(out) if relu else out
 
 
 def batch_norm(nd: int, channels: int):
@@ -60,10 +87,10 @@ def batch_norm(nd: int, channels: int):
 
 def conv_bn_relu(x: torch.Tensor, m: nn.Module,
                  bn: nn.modules.batchnorm._BatchNorm) -> torch.Tensor:
-    """A (transposed) convolution module, folded BN and ReLU."""
+    """A (transposed) convolution module, BN and ReLU."""
     transposed = isinstance(m, nn.modules.conv._ConvTransposeNd)
     y = deconv(x, m) if transposed else conv(x, m)
-    return bn_fold(y, bn, relu=True)
+    return norm_act(y, bn, relu=True)
 
 
 class _ConvBlock(nn.Module):

@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .blocks import SeqConvBnReLU, batch_norm, bn_fold, conv
+from .blocks import SeqConvBnReLU, batch_norm, norm_act, conv
 
 _LARGE = 600.0
 
@@ -60,10 +60,10 @@ class BasicBlockGeo(nn.Module):
 
     def forward(self, x, g1, g2):
         x = torch.cat([x, g1], dim=1)
-        out = bn_fold(conv(x, self.conv1), self.bn1, relu=True)
+        out = norm_act(conv(x, self.conv1), self.bn1, relu=True)
         out = torch.cat([g2, out], dim=1)
-        out = bn_fold(conv(out, self.conv2), self.bn2, relu=False)
-        identity = bn_fold(conv(x, self.downsample[0]), self.downsample[1],
+        out = norm_act(conv(out, self.conv2), self.bn2, relu=False)
+        identity = norm_act(conv(x, self.downsample[0]), self.downsample[1],
                            relu=False)
         return torch.relu(out + identity)
 

@@ -1,10 +1,19 @@
-"""Fused adaptive cost volume: wrapper of csrc/fused_costvol.cu.
+"""Fused adaptive cost volume and its backward: wrappers of
+csrc/fused_costvol.cu (K1) and csrc/fused_costvol_bwd.cu (K3).
 
-Replaces damvsnet_tpu/ops/pallas/fused_costvol.py::fused_adaptive_cost_volume.
+K1 replaces damvsnet_tpu/ops/pallas/fused_costvol.py::fused_adaptive_cost_volume.
 Warp, squared difference, the folded AggWeightNet and the sum over views run
 in one CUDA kernel; no per-view volume reaches device memory. The kernel
 gathers every bilinear tap, so unlike the TPU kernel it has no window
 budget and returns no overflow flag.
+
+K3 replaces the backward of damvsnet_tpu/ops/pallas/fused_costvol_vjp.py
+(the custom VJP of the training path): on a CUDA tensor that requires
+grad, ``fused_adaptive_cost_volume`` is a ``torch.autograd.Function`` whose
+forward launches K1 and whose backward launches K3. Gradients reach the
+reference and source features and the folded weight net (w1, b1, w2, b2);
+depth hypotheses and geometry get none, as under the reference's no_grad
+sampling grid (module.py:297-300), and neither does the 1/(N-1) constant.
 
 Layout: features NHWC [B, H, W, C] (free views of ``channels_last``
 feature maps), volume [B, D, H, W, C] contiguous — its
@@ -13,6 +22,7 @@ feature maps), volume [B, D, H, W, C] contiguous — its
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Sequence
 
 import torch
@@ -23,7 +33,7 @@ from ._common import check_cuda, check_launch, depth_argument
 from .build import load
 
 SUPPORTED_CHANNELS = (8, 16, 32)
-MAX_VIEWS = 16  # kMaxViews in the CUDA source
+MAX_VIEWS = 16  # kMaxViews in the CUDA sources
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -38,36 +48,54 @@ def folded_weight_fn(w1, b1, w2, b2):
 
 def fused_adaptive_cost_volume_plain(ref_fea, src_feas, ref_proj, src_projs,
                                      depth_values, w1, b1, w2, b2):
-    """The kernel's plain PyTorch version (same inputs, same result)."""
-    return build_cost_volume(ref_fea, src_feas, ref_proj, src_projs,
-                             depth_values, folded_weight_fn(w1, b1, w2, b2))
+    """The kernel's plain PyTorch version (same inputs, same result).
+    The sampling grid's inputs are detached, so torch autograd through this
+    function is the plain version of K3."""
+    return build_cost_volume(ref_fea, src_feas, ref_proj.detach(),
+                             [p.detach() for p in src_projs],
+                             depth_values.detach(),
+                             folded_weight_fn(w1, b1, w2, b2))
 
 
-def _bind(lib):
-    fn = lib.fused_costvol_launch
-    vp, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    fn.argtypes = [vp, ll, ctypes.POINTER(vp), ll, i, vp, vp, i, vp, vp,
-                   i, i, i, i, i, i, f, f, f, f, vp]
-    fn.restype = i
-    return fn
+def fused_adaptive_cost_volume_backward_plain(grad_out, ref_fea, src_feas,
+                                              ref_proj, src_projs, depth_values,
+                                              w1, b1, w2, b2):
+    """K3's plain version: torch autograd of the plain forward with
+    cotangent ``grad_out``. Returns (dref, [dsrc_v], dw1, db1, dw2, db2)."""
+    with torch.enable_grad():
+        feas = [t.detach().requires_grad_() for t in (ref_fea, *src_feas)]
+        wts = [torch.as_tensor(t, dtype=torch.float32, device=ref_fea.device)
+               .detach().requires_grad_() for t in (w1, b1, w2, b2)]
+        vol = fused_adaptive_cost_volume_plain(feas[0], feas[1:], ref_proj,
+                                               src_projs, depth_values, *wts)
+        grads = torch.autograd.grad(vol, feas + wts, grad_out)
+    v = len(src_feas)
+    return (grads[0], list(grads[1:1 + v]), *grads[1 + v:])
 
 
-def fused_adaptive_cost_volume(ref_fea: torch.Tensor,
-                               src_feas: Sequence[torch.Tensor],
-                               ref_proj: torch.Tensor,
-                               src_projs: Sequence[torch.Tensor],
-                               depth_values: torch.Tensor,
-                               w1, b1, w2, b2) -> torch.Tensor:
-    """Adaptive cost volume [B, D, H, W, C] in the feature dtype.
+@dataclass
+class _Launch:
+    """What K1 and K3 share for one call: shapes, strides, the per-view
+    geometry, the depth hypotheses and the grid affine."""
+    name: str
+    dev: torch.device
+    b: int
+    d: int
+    h: int
+    w: int
+    c: int
+    v: int
+    ref_bstride: int
+    src_bstride: int
+    geom: torch.Tensor
+    dv: torch.Tensor
+    per_pixel: int
+    affine: tuple
 
-    ref_fea [B,H,W,C]; src_feas: V tensors [B,H,W,C]; projs fused [B,4,4];
-    depth_values [B,D] or [B,D,H,W] fp32; (w1 [C], b1, w2, b2) from
-    ``nn.aggweight.fold_aggweight``. CPU tensors run the plain version; CUDA
-    tensors launch the kernel or raise."""
-    if ref_fea.device.type == "cpu":
-        return fused_adaptive_cost_volume_plain(
-            ref_fea, src_feas, ref_proj, src_projs, depth_values, w1, b1, w2, b2)
-    name = "fused_adaptive_cost_volume"
+
+def _prepare(name, ref_fea, src_feas, ref_proj, src_projs, depth_values) -> _Launch:
+    """Check the inputs (raise on what the kernels do not take) and build
+    the per-view geometry."""
     dev = check_cuda(name, ref_fea, *src_feas, ref_proj, *src_projs, depth_values)
     if ref_fea.dtype not in _DTYPES:
         raise ValueError(f"{name}: feature dtype {ref_fea.dtype} is not float32 "
@@ -93,32 +121,154 @@ def fused_adaptive_cost_volume(ref_fea: torch.Tensor,
         if tuple(s.stride()[1:]) != plane or (b > 1 and s.stride(0) != src_bstride):
             raise ValueError(f"{name}: each source [H, W, C] plane must be "
                              "contiguous, with one batch stride for all views")
-    ptrs = [s.data_ptr() for s in src_feas]
-    if any(p % 16 for p in ptrs + [ref_fea.data_ptr()]):
+    if any(t.data_ptr() % 16 for t in (ref_fea, *src_feas)):
         raise ValueError(f"{name}: feature pointers must be 16-byte aligned")
     d = depth_values.shape[1]
-    dv, per_pixel = depth_argument(depth_values, b, d, h, w)
+    dv, per_pixel = depth_argument(depth_values.detach(), b, d, h, w)
+    with torch.no_grad():
+        geom = torch.stack([geom_from_projs(sp, ref_proj) for sp in src_projs]).contiguous()
+    return _Launch(name, dev, b, d, h, w, c, v,
+                   ref_fea.stride(0) if b > 1 else 0, src_bstride, geom, dv,
+                   per_pixel, (*pixel_affine(w), *pixel_affine(h)))
 
-    geom = torch.stack([geom_from_projs(sp, ref_proj) for sp in src_projs]).contiguous()
-    # built on the device (a fill, never a host copy) so no launch syncs
+
+def _params(w1, b1, w2, b2, L: _Launch) -> torch.Tensor:
+    """[w1 (C), b1, w2, b2, 1/(N-1)] fp32, differentiable in w1..b2. Built
+    on the device (a fill, never a host copy) so no launch syncs."""
     scal = [x.float().reshape(1) if torch.is_tensor(x)
-            else torch.full((1,), float(x), device=dev)
-            for x in (b1, w2, b2, 1.0 / v)]
-    params = torch.cat([w1.float().reshape(c), *scal])
-    out = torch.empty((b, d, h, w, c), dtype=ref_fea.dtype, device=dev)
-    sx, ox = pixel_affine(w)
-    sy, oy = pixel_affine(h)
+            else torch.full((1,), float(x), device=L.dev)
+            for x in (b1, w2, b2)]
+    inv = torch.full((1,), 1.0 / L.v, device=L.dev)
+    return torch.cat([w1.float().reshape(L.c), *scal, inv])
 
-    fn = _bind(load("fused_costvol"))
-    stream = torch.cuda.current_stream(dev).cuda_stream
+
+def _bind_forward(lib):
+    fn = lib.fused_costvol_launch
+    vp, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    fn.argtypes = [vp, ll, ctypes.POINTER(vp), ll, i, vp, vp, i, vp, vp,
+                   i, i, i, i, i, i, f, f, f, f, vp]
+    fn.restype = i
+    return fn
+
+
+def _bind_backward(lib):
+    fn = lib.fused_costvol_bwd_launch
+    vp, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    fn.argtypes = [vp, ll, ctypes.POINTER(vp), ll, i, vp, vp, i, vp, vp, vp, vp,
+                   vp, i, i, i, i, i, i, f, f, f, f, vp]
+    fn.restype = i
+    return fn
+
+
+def _launch_forward(L: _Launch, params, ref_fea, src_feas) -> torch.Tensor:
+    out = torch.empty((L.b, L.d, L.h, L.w, L.c), dtype=ref_fea.dtype, device=L.dev)
+    params = params.detach().contiguous()
+    fn = _bind_forward(load("fused_costvol"))
+    stream = torch.cuda.current_stream(L.dev).cuda_stream
     fused_adaptive_cost_volume.launches += 1
-    err = fn(ref_fea.data_ptr(), ref_fea.stride(0) if b > 1 else 0,
-             (ctypes.c_void_p * v)(*ptrs), src_bstride, v,
-             geom.data_ptr(), dv.data_ptr(), per_pixel, params.data_ptr(),
-             out.data_ptr(), b, d, h, w, c, _DTYPES[ref_fea.dtype],
-             sx, ox, sy, oy, stream)
-    check_launch(name, err)
+    err = fn(ref_fea.data_ptr(), L.ref_bstride,
+             (ctypes.c_void_p * L.v)(*[s.data_ptr() for s in src_feas]),
+             L.src_bstride, L.v, L.geom.data_ptr(), L.dv.data_ptr(), L.per_pixel,
+             params.data_ptr(), out.data_ptr(), L.b, L.d, L.h, L.w, L.c,
+             _DTYPES[ref_fea.dtype], *L.affine, stream)
+    check_launch(L.name, err)
     return out
 
 
+def _launch_backward(L: _Launch, params, ref_fea, src_feas, grad_out):
+    """K3: (dref [B,H,W,C], [dsrc_v], dw [C+3] = dw1, db1, dw2, db2)."""
+    if (grad_out.device != L.dev or grad_out.dtype != ref_fea.dtype
+            or tuple(grad_out.shape) != (L.b, L.d, L.h, L.w, L.c)):
+        raise ValueError(f"{L.name}: the cotangent {tuple(grad_out.shape)} "
+                         f"{grad_out.dtype} on {grad_out.device} does not match "
+                         f"the volume {(L.b, L.d, L.h, L.w, L.c)} "
+                         f"{ref_fea.dtype} on {L.dev}")
+    if not grad_out.is_contiguous():
+        raise ValueError(f"{L.name}: the cotangent must be contiguous")
+    dref = torch.empty((L.b, L.h, L.w, L.c), dtype=torch.float32, device=L.dev)
+    dsrc = torch.zeros((L.v, L.b, L.h, L.w, L.c), dtype=torch.float32, device=L.dev)
+    dw = torch.zeros(L.c + 3, dtype=torch.float32, device=L.dev)
+    params = params.detach().contiguous()
+    fn = _bind_backward(load("fused_costvol_bwd"))
+    stream = torch.cuda.current_stream(L.dev).cuda_stream
+    fused_adaptive_cost_volume_backward.launches += 1
+    err = fn(ref_fea.data_ptr(), L.ref_bstride,
+             (ctypes.c_void_p * L.v)(*[s.data_ptr() for s in src_feas]),
+             L.src_bstride, L.v, L.geom.data_ptr(), L.dv.data_ptr(), L.per_pixel,
+             params.data_ptr(), grad_out.data_ptr(), dref.data_ptr(),
+             dsrc.data_ptr(), dw.data_ptr(), L.b, L.d, L.h, L.w, L.c,
+             _DTYPES[ref_fea.dtype], *L.affine, stream)
+    check_launch(L.name, err)
+    dt = ref_fea.dtype
+    return dref.to(dt), [g.to(dt) for g in dsrc.unbind(0)], dw
+
+
+class _FusedCostVolume(torch.autograd.Function):
+    """Forward K1, backward K3."""
+
+    @staticmethod
+    def forward(ctx, L, params, ref_fea, *src_feas):
+        ctx.launch = L
+        ctx.save_for_backward(params, ref_fea, *src_feas)
+        return _launch_forward(L, params, ref_fea, src_feas)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        params, ref_fea, *src_feas = ctx.saved_tensors
+        dref, dsrc, dw = _launch_backward(ctx.launch, params, ref_fea, src_feas,
+                                          grad_out.contiguous())
+        dparams = torch.cat([dw, dw.new_zeros(1)])  # 1/(N-1): no gradient
+        return (None, dparams, dref, *dsrc)
+
+
+def fused_adaptive_cost_volume(ref_fea: torch.Tensor,
+                               src_feas: Sequence[torch.Tensor],
+                               ref_proj: torch.Tensor,
+                               src_projs: Sequence[torch.Tensor],
+                               depth_values: torch.Tensor,
+                               w1, b1, w2, b2) -> torch.Tensor:
+    """Adaptive cost volume [B, D, H, W, C] in the feature dtype.
+
+    ref_fea [B,H,W,C]; src_feas: V tensors [B,H,W,C]; projs fused [B,4,4];
+    depth_values [B,D] or [B,D,H,W] fp32; (w1 [C], b1, w2, b2) from
+    ``nn.aggweight.fold_aggweight``. CPU tensors run the plain version
+    (differentiable by torch autograd); CUDA tensors launch K1, with K3 as
+    the backward when a feature or weight requires grad, or raise."""
+    if ref_fea.device.type == "cpu":
+        return fused_adaptive_cost_volume_plain(
+            ref_fea, src_feas, ref_proj, src_projs, depth_values, w1, b1, w2, b2)
+    L = _prepare("fused_adaptive_cost_volume", ref_fea, src_feas, ref_proj,
+                 src_projs, depth_values)
+    params = _params(w1, b1, w2, b2, L)
+    if torch.is_grad_enabled() and (params.requires_grad or ref_fea.requires_grad
+                                    or any(s.requires_grad for s in src_feas)):
+        return _FusedCostVolume.apply(L, params, ref_fea, *src_feas)
+    return _launch_forward(L, params, ref_fea, src_feas)
+
+
+def fused_adaptive_cost_volume_backward(grad_out: torch.Tensor,
+                                        ref_fea: torch.Tensor,
+                                        src_feas: Sequence[torch.Tensor],
+                                        ref_proj: torch.Tensor,
+                                        src_projs: Sequence[torch.Tensor],
+                                        depth_values: torch.Tensor,
+                                        w1, b1, w2, b2):
+    """K3 on its own: the gradients of sum(volume * grad_out) with respect
+    to (ref_fea, src_feas, w1, b1, w2, b2), returned as (dref, [dsrc_v],
+    dw1 [C], db1, dw2, db2); the features' gradients in their dtype, the
+    weight net's in fp32. CPU tensors run the plain version; CUDA tensors
+    launch K3 or raise."""
+    if ref_fea.device.type == "cpu":
+        return fused_adaptive_cost_volume_backward_plain(
+            grad_out, ref_fea, src_feas, ref_proj, src_projs, depth_values,
+            w1, b1, w2, b2)
+    L = _prepare("fused_adaptive_cost_volume_backward", ref_fea, src_feas,
+                 ref_proj, src_projs, depth_values)
+    dref, dsrc, dw = _launch_backward(L, _params(w1, b1, w2, b2, L), ref_fea,
+                                      src_feas, grad_out)
+    c = L.c
+    return dref, dsrc, dw[:c], dw[c], dw[c + 1], dw[c + 2]
+
+
 fused_adaptive_cost_volume.launches = 0
+fused_adaptive_cost_volume_backward.launches = 0

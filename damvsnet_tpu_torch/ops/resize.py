@@ -3,6 +3,8 @@
 The JAX package reimplements torch's ``F.interpolate`` conventions; here
 they are ``F.interpolate`` itself:
   * bilinear, align_corners=False  — stage handoff upsampling of depth/conf
+  * bilinear, align_corners=True   — the CPC loss's source images
+                                     (losses/crossview.py)
   * nearest (legacy torch)         — FPN top-down x2 upsampling
   * trilinear, align_corners=False — snapping depth hypotheses to stage res
 
@@ -16,12 +18,12 @@ import torch
 import torch.nn.functional as F
 
 
-def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
+def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = False) -> torch.Tensor:
     """Bilinear resize of [B, H, W, C] to [B, H2, W2, C], torch semantics."""
     if tuple(out_hw) == tuple(x.shape[1:3]):
         return x
     y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(out_hw),
-                      mode="bilinear", align_corners=False)
+                      mode="bilinear", align_corners=align_corners)
     return y.permute(0, 2, 3, 1)
 
 

@@ -1,18 +1,25 @@
-"""Where the PyTorch/CUDA port's serving forward spends device time.
+"""Where the PyTorch/CUDA port spends device time, serving or training.
 
-    python3 scripts/profile_torch_cascade.py [--cudnn-benchmark] [--trace PATH]
+    python3 scripts/profile_torch_cascade.py [--train] [--cudnn-benchmark] [--trace PATH]
                                           (repository root, one GPU)
 
-Runs the serving cascade (1152x864, N=5, ndepths 64/32/8, bf16, the trained
-weights of weights/bench_ckpt.npz, the synthetic scene of chip_smoke.py)
-through DepthRunner: one warm-up request, then REQUESTS requests under
-torch.profiler. Prints device time per kernel family, the top kernels and
-the slowest convolutions with their input shapes,
-the device's busy and idle share of the profiled wall time, and one JSON
-line. ``--trace PATH`` writes the Chrome trace there.
+Serving (the default): the cascade (1152x864, N=5, ndepths 64/32/8, bf16,
+the trained weights of weights/bench_ckpt.npz, the synthetic scene of
+chip_smoke.py) through DepthRunner, one warm-up request, then REPEATS
+requests under torch.profiler.
+
+``--train``: the training step of chip_smoke.py phase 7 (512x640, B=4,
+N=5, D0=192, ndepths 64/32/8, bf16, the trained weights, Adam under the
+warmup schedule, CPC on) through make_train_step, two warm-up steps on
+their own batches, then REPEATS steps under torch.profiler.
+
+Prints device time per kernel family, the top kernels and the slowest
+convolutions with their input shapes, the device's busy and idle share of
+the profiled wall time, and one JSON line. ``--trace PATH`` writes the
+Chrome trace there.
 
 ``--cudnn-benchmark`` is a diagnostic, not a serving setting: it lets cuDNN
-time its algorithms per shape during the warm-up request
+time its algorithms per shape during the warm-up
 (``torch.backends.cudnn.benchmark``) to show what the algorithm choice is
 worth. The port itself leaves it off.
 """
@@ -27,11 +34,15 @@ from collections import defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-REQUESTS = 3
+REPEATS = 3
 # kernel-name substrings -> family, first match wins
 FAMILIES = (
     ("K1 fused cost volume", ("fused_costvol_kernel",)),
+    ("K3 fused cost volume backward", ("fused_costvol_bwd_kernel",)),
     ("K2 prob stats", ("probstats_kernel",)),
+    ("optimizer (Adam)", ("multi_tensor", "adam")),
+    # cuDNN's BN kernels (bn_fw/bn_bw, batchnorm_*) before "cudnn" below
+    ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "welford")),
     ("convolution", ("conv", "xmma", "gemm", "cudnn", "cutlass", "dgrad", "wgrad",
                      "implicit", "winograd", "sm90", "fft")),
     ("resize", ("upsample", "interp")),
@@ -50,6 +61,53 @@ def family(name: str) -> str:
     return "other"
 
 
+def serving_request():
+    """Warm DepthRunner up on the serving request; return the request."""
+    import torch
+    from damvsnet_tpu_torch.data.synthetic import make_synthetic_sample
+    from damvsnet_tpu_torch.infer import DepthRunner
+    from damvsnet_tpu_torch.model import CascadeMVSNet
+    from damvsnet_tpu_torch.utils.weights import load_bench_weights
+
+    sample = make_synthetic_sample(height=864, width=1152, nviews=5, ndepths=192,
+                                   with_gt=False, seed=3)
+    batch = {"imgs": sample["imgs"][None],
+             "proj_matrices": {k: v[None] for k, v in sample["proj_matrices"].items()},
+             "depth_values": sample["depth_values"][None]}
+    model = CascadeMVSNet(ndepths=(64, 32, 8), compute_dtype=torch.bfloat16)
+    load_bench_weights(model, "weights/bench_ckpt.npz")
+    runner = DepthRunner(model)
+    runner(batch)
+    return lambda: runner(batch)
+
+
+def training_step():
+    """Warm the training step up (two steps); return one more step, on a
+    batch of its own."""
+    import torch
+    from damvsnet_tpu_torch.data.common import collate
+    from damvsnet_tpu_torch.data.synthetic import make_synthetic_sample
+    from damvsnet_tpu_torch.model import CascadeMVSNet
+    from damvsnet_tpu_torch.train.loop import make_train_step
+    from damvsnet_tpu_torch.train.schedule import make_optimizer
+    from damvsnet_tpu_torch.train.state import TrainState
+    from damvsnet_tpu_torch.utils.weights import load_bench_weights
+
+    model = CascadeMVSNet(ndepths=(64, 32, 8), compute_dtype=torch.bfloat16)
+    load_bench_weights(model, "weights/bench_ckpt.npz")
+    optimizer, scheduler = make_optimizer(model.parameters(), 1e-3, "10,12,14:2",
+                                          iters_per_epoch=1000)
+    state = TrainState(model, optimizer, scheduler)
+    step = make_train_step()
+    batches = [collate([make_synthetic_sample(height=512, width=640, nviews=5,
+                                              ndepths=192, seed=4 * i + k)
+                        for k in range(4)]) for i in range(3)]
+    for batch in batches[:2]:
+        step(state, batch)
+    torch.cuda.synchronize()
+    return lambda: step(state, batches[2])
+
+
 def main():
     import torch
     from torch.autograd import DeviceType
@@ -61,31 +119,20 @@ def main():
     if not torch.cuda.is_available():
         print("profile_torch_cascade: no CUDA device", file=sys.stderr)
         return 2
-    from damvsnet_tpu_torch.data.synthetic import make_synthetic_sample
-    from damvsnet_tpu_torch.infer import DepthRunner
-    from damvsnet_tpu_torch.model import CascadeMVSNet
-    from damvsnet_tpu_torch.ops.kernels import build
-    from damvsnet_tpu_torch.utils.weights import load_bench_weights
-
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
+    from damvsnet_tpu_torch.ops.kernels import build
     build.build()
-    sample = make_synthetic_sample(height=864, width=1152, nviews=5, ndepths=192,
-                                   with_gt=False, seed=3)
-    batch = {"imgs": sample["imgs"][None],
-             "proj_matrices": {k: v[None] for k, v in sample["proj_matrices"].items()},
-             "depth_values": sample["depth_values"][None]}
-    model = CascadeMVSNet(ndepths=(64, 32, 8), compute_dtype=torch.bfloat16)
-    load_bench_weights(model, "weights/bench_ckpt.npz")
-    runner = DepthRunner(model)
-    runner(batch)
+    train = "--train" in args
+    unit, run = ("step", training_step()) if train else ("request", serving_request())
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         t0 = time.perf_counter()
-        for _ in range(REQUESTS):
-            runner(batch)
+        for _ in range(REPEATS):
+            run()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     # device-side activities only (kernels, memcpys, memsets): operator
@@ -103,31 +150,32 @@ def main():
     busy_ms = sum(per_kernel.values())
 
     print(f"card: {smi}")
-    print(f"{REQUESTS} requests: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
+    print(f"{REPEATS} {unit}s: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.4f}")
     for fam, ms in sorted(per_family.items(), key=lambda kv: -kv[1]):
-        print(f"  {fam:24s} {ms / REQUESTS:9.3f} ms/request  {ms / busy_ms:6.1%}")
-    print("top device activities (ms per request, count per request):")
+        print(f"  {fam:30s} {ms / REPEATS:9.3f} ms/{unit}  {ms / busy_ms:6.1%}")
+    print(f"top device activities (ms per {unit}, count per {unit}):")
     for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:25]:
-        print(f"  {ms / REQUESTS:9.3f}  {calls[name] / REQUESTS:6.1f}  {name[:110]}")
-    print("slowest convolutions by input shapes (ms per request, calls per request):")
+        print(f"  {ms / REPEATS:9.3f}  {calls[name] / REPEATS:6.1f}  {name[:110]}")
+    print(f"slowest convolutions by input shapes (ms per {unit}, calls per {unit}):")
     convs = [e for e in prof.key_averages(group_by_input_shape=True)
              if e.key.startswith("aten::cudnn_convolution")]
     for e in sorted(convs, key=lambda e: -e.device_time_total)[:10]:
-        print(f"  {e.device_time_total / 1e3 / REQUESTS:9.3f}  {e.count / REQUESTS:6.1f}  "
+        print(f"  {e.device_time_total / 1e3 / REPEATS:9.3f}  {e.count / REPEATS:6.1f}  "
               f"{e.key} {e.input_shapes[:2]}")
     if "--trace" in args:
         path = args[args.index("--trace") + 1]
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         prof.export_chrome_trace(path)
     print(json.dumps({
-        "card": smi, "requests": REQUESTS,
-        "wall_ms_per_request": wall_ms / REQUESTS,
-        "device_busy_ms_per_request": busy_ms / REQUESTS,
+        "card": smi, "workload": "training" if train else "serving", f"{unit}s": REPEATS,
+        f"wall_ms_per_{unit}": wall_ms / REPEATS,
+        f"device_busy_ms_per_{unit}": busy_ms / REPEATS,
         "idle_share": 1 - busy_ms / wall_ms,
-        "family_ms_per_request": {k: v / REQUESTS for k, v in per_family.items()},
+        f"family_ms_per_{unit}": {k: v / REPEATS for k, v in per_family.items()},
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "cudnn_benchmark": torch.backends.cudnn.benchmark,
-        "device_activities_per_request": sum(calls.values()) / REQUESTS}))
+        f"device_activities_per_{unit}": sum(calls.values()) / REPEATS}))
     return 0
 
 

@@ -96,3 +96,64 @@ def test_probstats_matches_plain(dev, per_pixel):
         torch.testing.assert_close(got[key], want[key], atol=atol, rtol=0)
     flips = (got["photometric_confidence"] - want["photometric_confidence"]).abs() > 1e-5
     assert int(flips.sum()) <= 2
+
+
+@pytest.mark.parametrize("c", [8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_pixel", [False, True])
+def test_fused_costvol_backward_matches_plain(dev, c, dtype, per_pixel):
+    """K3 against torch autograd of the plain forward (in fp32 on the same
+    inputs); fp32 atomics sum in another order on every run."""
+    feas, projs, dv, w1, b1, w2, b2 = _inputs(dev, dtype, c, per_pixel, b=2)
+    g = torch.Generator(device=dev).manual_seed(3)
+    cot = torch.randn((2, dv.shape[1], 24, 40, c), generator=g, device=dev).to(dtype)
+    args = (feas[0], feas[1:], projs[0], projs[1:], dv, w1, b1, w2, b2)
+    n0 = fused_costvol.fused_adaptive_cost_volume_backward.launches
+    got = fused_costvol.fused_adaptive_cost_volume_backward(cot, *args)
+    torch.cuda.synchronize()
+    assert fused_costvol.fused_adaptive_cost_volume_backward.launches == n0 + 1
+    want = fused_costvol.fused_adaptive_cost_volume_backward_plain(
+        cot.float(), feas[0].float(), [f.float() for f in feas[1:]], projs[0],
+        projs[1:], dv, w1, b1, w2, b2)
+    rel = 1e-4 if dtype == torch.float32 else 2.0 ** -8
+    for gt, wt in [(got[0], want[0])] + list(zip(got[1], want[1])):
+        assert gt.dtype == dtype and gt.shape == wt.shape
+        tol = 1e-3 * wt.abs().max() + rel * wt.abs()
+        assert bool(((gt.float() - wt).abs() <= tol).all())
+    gw = torch.cat([got[2], torch.stack(got[3:])])
+    ww = torch.cat([want[2], torch.stack(want[3:])])
+    assert float((gw - ww).abs().max()) <= 1e-3 * float(ww.abs().max())
+
+
+def test_fused_costvol_function_gradients(dev):
+    """Autograd through the wrapper: forward K1, backward K3, gradients to
+    the features and to w1..b2 through the fold, none to the geometry."""
+    feas, projs, dv, w1, b1, w2, b2 = _inputs(dev, torch.float32, 16, True, b=2)
+    leaves = [f.clone().requires_grad_() for f in feas]
+    wts = [t.clone().requires_grad_() for t in (w1, b1, w2, b2)]
+    n0 = (fused_costvol.fused_adaptive_cost_volume.launches,
+          fused_costvol.fused_adaptive_cost_volume_backward.launches)
+    vol = fused_costvol.fused_adaptive_cost_volume(
+        leaves[0], leaves[1:], projs[0], projs[1:], dv, *wts)
+    (vol * vol.detach().sin()).sum().backward()
+    assert (fused_costvol.fused_adaptive_cost_volume.launches,
+            fused_costvol.fused_adaptive_cost_volume_backward.launches) == (n0[0] + 1, n0[1] + 1)
+    ref_leaves = [f.clone().requires_grad_() for f in feas]
+    ref_wts = [t.clone().requires_grad_() for t in (w1, b1, w2, b2)]
+    want = fused_costvol.fused_adaptive_cost_volume_plain(
+        ref_leaves[0], ref_leaves[1:], projs[0], projs[1:], dv, *ref_wts)
+    (want * vol.detach().sin()).sum().backward()
+    for a, b in zip(leaves + wts, ref_leaves + ref_wts):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-3 * float(b.grad.abs().max()),
+                                   rtol=1e-4)
+
+
+def test_fused_costvol_backward_rejects_bad_cotangent(dev):
+    feas, projs, dv, w1, b1, w2, b2 = _inputs(dev, torch.float32, 8, False)
+    args = (feas[0], feas[1:], projs[0], projs[1:], dv, w1, b1, w2, b2)
+    cot = torch.ones((1, dv.shape[1], 24, 40, 8), device=dev)
+    with pytest.raises(ValueError):
+        fused_costvol.fused_adaptive_cost_volume_backward(cot.bfloat16(), *args)
+    with pytest.raises(ValueError):
+        fused_costvol.fused_adaptive_cost_volume_backward(cot.transpose(2, 3).contiguous()
+                                                          .transpose(2, 3), *args)

@@ -17,3 +17,19 @@ def fused_projs(batch, num_views, height, width, seed=0):
                                  projs[:, v, 0, :3, :4])
         fused.append(f)
     return fused
+
+
+def port_named(params, batch_stats):
+    """Flax variable trees (``params`` may be a gradient tree of the same
+    structure) -> {the port's state_dict name: numpy array}, through the
+    port's weight bridge ``state_dict_from_flax``. JAX is imported here,
+    not at the top: the card's test run imports this module without it."""
+    import jax
+    from damvsnet_tpu_torch.utils.weights import state_dict_from_flax
+
+    flat = {}
+    for coll, tree in (("params", params), ("batch_stats", batch_stats)):
+        for kp, v in jax.tree_util.tree_flatten_with_path(tree)[0]:
+            key = "/".join(str(getattr(k, "key", k)) for k in kp)
+            flat[f"{coll}/{key}"] = np.asarray(v, np.float32)
+    return {k: v.numpy() for k, v in state_dict_from_flax(flat).items()}
