@@ -25,7 +25,18 @@ without printing its result line:
      step, then 3 timed steps through make_train_step with every launch
      counter set to 0 just before and read just after (K1 and K3 3 times a
      step, K2 never); then one batch's loss and gradients on the kernels
-     against the plain versions, in fp32 with TF32 off.
+     against the plain versions, in fp32 with TF32 off;
+  8. K4, the plane-sweep sampler, against its plain version at each
+     stage's full-width serving shape for every source view, fp32 (TF32
+     off) and bf16, on the scene's FeatureNet maps and sweeps; timed beside
+     F.grid_sample on the same normalized grid (the reference's own call),
+     with CUDA events and, device time alone, with torch.profiler;
+  9. the variance-aggregation serving cascade (as phase 5, agg_mode
+     "variance", the trained weights less the weight nets): 1 warm-up and
+     3 timed requests through DepthRunner with every launch counter set to
+     0 just before and read just after (K4 4 times a stage, K2 once, K1
+     never); the depth against the plain versions in bf16 and, with TF32
+     off, in fp32; then the same without geo fusion.
 
 Times come from CUDA events after warm-up (kernels) or from the host clock
 around synchronised work (requests, steps). Each bound is the larger of
@@ -47,6 +58,7 @@ HEIGHT, WIDTH, NVIEWS, D0, SEED = 864, 1152, 5, 192, 3
 NDEPTHS = (64, 32, 8)
 STAGE_C = (32, 16, 8)
 REQUESTS = 3
+SERVING_WEIGHTS = "weights/bench_ckpt.npz"
 # K1 runs on the scene's FeatureNet maps with the trained weights.
 # Tolerance on (kernel - plain) / (1 + |plain|), elementwise. fp32: both
 # evaluate the projective geometry in fp32 in another order, a few ulps of
@@ -54,6 +66,10 @@ REQUESTS = 3
 # gradient (2e-3 holds even for white-noise features). bf16: both sum in
 # fp32 and round once; one bf16 step is 2^-7.
 K1_TOL = {"fp32": 2e-3, "bf16": 2.0 ** -7 + 2e-3}
+# K4 against its plain version (fp32), on (kernel - plain) / (1 + |plain|):
+# fp32 is K1's reason; bf16: the plain version samples the same bf16 inputs
+# in fp32 and the kernel rounds once (half a bf16 step, 2^-9 relative).
+K4_TOL = {"fp32": 2e-3, "bf16": 2.0 ** -8 + 2e-3}
 # K2 (fp32 only, as on the main path): prob to 1e-6; depth and sigma3 to
 # 1e-4 of sums over up to 64 hypotheses of depths near 5..10; confidence
 # flips where trunc(sum p*d) lands on the other side of an integer.
@@ -113,6 +129,25 @@ def cuda_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, key, iters=5):
+    """Device time per call of the kernels whose names hold ``key``, under
+    torch.profiler: the kernel alone, without the host work of the call
+    (which CUDA events see whenever it outlasts the kernel)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and key in e.name)
+    check(us > 0, f"the profiler saw no device kernel named like {key!r}")
+    return us / 1e3 / iters
 
 
 def p999(x):
@@ -246,48 +281,20 @@ def phase_k2(sample, dev):
     return rows
 
 
-def phase_cascade(sample, model, dev):
+def serving_batch(sample):
+    return {"imgs": sample["imgs"][None],
+            "proj_matrices": {k: v[None] for k, v in sample["proj_matrices"].items()},
+            "depth_values": sample["depth_values"][None]}
+
+
+def depth_parity(runner, model, batch, rng, bf16_depth):
+    """p999 and max |depth - plain-path depth| in bf16 (``bf16_depth``, a
+    request on the kernels, against one plain request) and in fp32 with
+    TF32 off, each beside its limit, DEPTH_TOL_SHARE of the depth range.
+    Leaves the model on the kernels in bf16, and TF32 off."""
     import numpy as np
     import torch
-    from damvsnet_tpu_torch.infer import DepthRunner
-    from damvsnet_tpu_torch.ops.kernels import fused_costvol, probstats
-    batch = {"imgs": sample["imgs"][None],
-             "proj_matrices": {k: v[None] for k, v in sample["proj_matrices"].items()},
-             "depth_values": sample["depth_values"][None]}
-    rng = float(sample["depth_values"][-1] - sample["depth_values"][0])
-    runner = DepthRunner(model, device=dev)
-    model.compute_dtype, model.plain = torch.bfloat16, False
-    t0 = time.perf_counter()
-    runner(batch)  # warm-up: cuDNN's first-call setup
-    warm_ms = (time.perf_counter() - t0) * 1e3
-
-    counters = (fused_costvol.fused_adaptive_cost_volume, probstats.prob_volume_stats_fused)
-    for fn in counters:
-        fn.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times, out = [], None
-    for _ in range(REQUESTS):
-        t0 = time.perf_counter()
-        out = runner(batch)
-        times.append((time.perf_counter() - t0) * 1e3)
-    launches = {fn.__name__: fn.launches for fn in counters}
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    print("cascade", json.dumps({"warmup_ms": warm_ms, "request_ms": times,
-                                 "peak_mem_gib": peak_gib, "launches": launches}),
-          flush=True)
-    for name, n in launches.items():
-        check(n == 3 * REQUESTS, f"{name} launched {n} times in {REQUESTS} "
-              f"requests, expected {3 * REQUESTS}")
-    depth = out["depth"]
-    check(depth.shape == (1, HEIGHT, WIDTH), f"depth shape {depth.shape}")
-    check(bool(np.isfinite(depth).all()), "non-finite depth")
-    gt = sample["depth"]["stage3"][None]
-    print("cascade vs scene depth", json.dumps({
-        "median_abs_err": float(np.median(np.abs(depth - gt))),
-        "depth_range": rng}), flush=True)
-
-    results = {"bf16": depth}
+    results = {"bf16": bf16_depth}
     model.plain = True
     plain = {"bf16": runner(batch)["depth"]}
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -304,6 +311,81 @@ def phase_cascade(sample, model, dev):
         parity[tag] = {"p999_abs": float(np.quantile(diff, 0.999)),
                        "max_abs": float(diff.max()),
                        "tol": DEPTH_TOL_SHARE * rng}
+    return parity
+
+
+def kernel_counters():
+    """Every kernel wrapper, K1-K4: each path sets all of their launch
+    counters to 0 just before it runs and reads all of them just after."""
+    from damvsnet_tpu_torch.ops.kernels import fused_costvol, probstats, sweep_sampler
+    return (fused_costvol.fused_adaptive_cost_volume, probstats.prob_volume_stats_fused,
+            fused_costvol.fused_adaptive_cost_volume_backward,
+            sweep_sampler.plane_sweep_sample)
+
+
+def reset_counters():
+    for fn in kernel_counters():
+        fn.launches = 0
+
+
+def read_counters():
+    return {fn.__name__: fn.launches for fn in kernel_counters()}
+
+
+def check_launches(path, launches, per_unit, units):
+    """Every kernel's launches on a path against ``per_unit`` (request or
+    step) times ``units``; a kernel missing from ``per_unit`` must not
+    launch."""
+    for name, n in launches.items():
+        want = per_unit.get(name, 0) * units
+        check(n == want, f"{path}: {name} launched {n} times in {units} "
+              f"runs, expected {want}")
+
+
+def timed_requests(runner, batch):
+    """One warm-up request (cuDNN's first-call setup), then REQUESTS timed
+    requests with every launch counter set to 0 just before and read just
+    after. Returns (warm-up ms, [request ms], the last output, {counter:
+    launches}, peak GiB)."""
+    import torch
+    t0 = time.perf_counter()
+    runner(batch)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    reset_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, out = [], None
+    for _ in range(REQUESTS):
+        t0 = time.perf_counter()
+        out = runner(batch)
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counters()
+    return warm_ms, times, out, launches, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def phase_cascade(sample, model, dev):
+    import numpy as np
+    import torch
+    from damvsnet_tpu_torch.infer import DepthRunner
+    batch = serving_batch(sample)
+    rng = float(sample["depth_values"][-1] - sample["depth_values"][0])
+    runner = DepthRunner(model, device=dev)
+    model.compute_dtype, model.plain = torch.bfloat16, False
+    warm_ms, times, out, launches, peak_gib = timed_requests(runner, batch)
+    print("cascade", json.dumps({"warmup_ms": warm_ms, "request_ms": times,
+                                 "peak_mem_gib": peak_gib, "launches": launches}),
+          flush=True)
+    check_launches("cascade", launches, {"fused_adaptive_cost_volume": 3,
+                                         "prob_volume_stats_fused": 3}, REQUESTS)
+    depth = out["depth"]
+    check(depth.shape == (1, HEIGHT, WIDTH), f"depth shape {depth.shape}")
+    check(bool(np.isfinite(depth).all()), "non-finite depth")
+    gt = sample["depth"]["stage3"][None]
+    print("cascade vs scene depth", json.dumps({
+        "median_abs_err": float(np.median(np.abs(depth - gt))),
+        "depth_range": rng}), flush=True)
+
+    parity = depth_parity(runner, model, batch, rng, depth)
     print("cascade vs plain", json.dumps(parity), flush=True)
     for tag, p in parity.items():
         check(p["p999_abs"] <= p["tol"], f"cascade {tag}: depth p999 "
@@ -428,14 +510,13 @@ def grads_of_one_step(model, batch, plain):
 def phase_train(dev):
     import torch
     from damvsnet_tpu_torch.model import CascadeMVSNet
-    from damvsnet_tpu_torch.ops.kernels import fused_costvol, probstats
     from damvsnet_tpu_torch.train.loop import batch_to_device, make_train_step
     from damvsnet_tpu_torch.train.schedule import make_optimizer
     from damvsnet_tpu_torch.train.state import TrainState
     from damvsnet_tpu_torch.utils.weights import load_bench_weights
 
     model = CascadeMVSNet(ndepths=NDEPTHS, compute_dtype=torch.bfloat16, device=dev)
-    load_bench_weights(model, "weights/bench_ckpt.npz")
+    load_bench_weights(model, SERVING_WEIGHTS)
     start = {k: v.clone() for k, v in model.state_dict().items()}
     optimizer, scheduler = make_optimizer(model.parameters(), 1e-3, "10,12,14:2",
                                           iters_per_epoch=1000)
@@ -451,11 +532,7 @@ def phase_train(dev):
     check(math.isfinite(float(warm["loss"])), f"warm-up step loss {float(warm['loss'])}")
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
 
-    counters = (fused_costvol.fused_adaptive_cost_volume,
-                fused_costvol.fused_adaptive_cost_volume_backward,
-                probstats.prob_volume_stats_fused)
-    for fn in counters:
-        fn.launches = 0
+    reset_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
@@ -465,7 +542,7 @@ def phase_train(dev):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append({k: float(v) for k, v in metrics.items()})
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = read_counters()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     moved = sum(int(not torch.equal(p.detach(), before[k]))
                 for k, p in model.named_parameters())
@@ -476,11 +553,9 @@ def phase_train(dev):
     for m in losses:
         check(all(math.isfinite(v) for v in m.values()), f"non-finite step metrics {m}")
     check(moved > 0, "no parameter moved in the timed steps")
-    per_step = {"fused_adaptive_cost_volume": 3, "fused_adaptive_cost_volume_backward": 3,
-                "prob_volume_stats_fused": 0}
-    for name, n in launches.items():
-        check(n == per_step[name] * TRAIN_STEPS, f"{name} launched {n} times in "
-              f"{TRAIN_STEPS} steps, expected {per_step[name] * TRAIN_STEPS}")
+    check_launches("training", launches, {"fused_adaptive_cost_volume": 3,
+                                          "fused_adaptive_cost_volume_backward": 3},
+                   TRAIN_STEPS)
 
     # one batch, the same weights: kernels against plain versions, fp32
     del state, optimizer, scheduler, step
@@ -514,6 +589,125 @@ def phase_train(dev):
     return launches, float(sum(step_ms) / len(step_ms)), peak_gib
 
 
+def k4_bound_ms(b, d, h, w, c, elem, per_pixel):
+    """The source read once, the depths, the output written once; per voxel
+    the projection and tap weights ~30 operations and 4 taps x C fma."""
+    bytes_ = b * h * w * c * elem + b * d * (h * w if per_pixel else 1) * 4 + b * d * h * w * c * elem
+    ops = b * d * h * w * (8 * c + 30)
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_k4(sample, model, dev):
+    """K4 per stage and dtype on the scene's N-1 source views; ms, plain_ms,
+    library_ms and bound_ms are for the stage's N-1 launches (one request's
+    worth), ms_per_launch one launch; kernel_ms and library_kernel_ms are
+    the device time alone of K4's and grid_sample's kernels."""
+    import torch
+    import torch.nn.functional as F
+    from damvsnet_tpu_torch.ops.kernels.sweep_sampler import plane_sweep_sample
+    from damvsnet_tpu_torch.ops.warp import plane_sweep_grid, plane_sweep_warp
+    gen = torch.Generator(device=dev).manual_seed(4)
+    feats = {tag: stage_features(sample, model, dev, dtype)
+             for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16))}
+    rows = []
+    for stage_idx in range(3):
+        ref_p, src_p = stage_geometry(sample, stage_idx + 1, dev)
+        dv = sweep(sample, stage_idx, dev, gen)
+        views = len(src_p)
+        for tag in ("fp32", "bf16"):
+            srcs = [f for f in feats[tag][stage_idx][1:]]  # [1, h, w, C] each
+            b, h, w, c = srcs[0].shape
+            rel = max_abs = 0.0
+            for src, p in zip(srcs, src_p):
+                got = plane_sweep_sample(src, p, ref_p, dv)
+                torch.cuda.synchronize()
+                want = plane_sweep_warp(src, p, ref_p, dv)
+                diff = (got.float() - want).abs()
+                rel = max(rel, float((diff / (1 + want.abs())).max()))
+                max_abs = max(max_abs, float(diff.max()))
+                del want, diff
+            # the reference's call: grid_sample on the [B, D*h, w, 2]
+            # normalized grid of the same hypotheses, built here, untimed
+            grids, nchw = [], [src.permute(0, 3, 1, 2) for src in srcs]
+            for p in src_p:
+                px, py = plane_sweep_grid(p, ref_p, dv, h, w)
+                g = torch.stack([(2 * px + 1) / w - 1, (2 * py + 1) / h - 1], dim=-1)
+                grids.append(g.reshape(b, -1, w, 2).to(srcs[0].dtype))
+                del px, py, g
+
+            def library():
+                return [F.grid_sample(x, g, mode="bilinear", padding_mode="zeros",
+                                      align_corners=False) for x, g in zip(nchw, grids)]
+
+            lib = library()[-1].reshape(b, c, -1, h, w).permute(0, 2, 3, 4, 1)
+            row = {"stage": stage_idx + 1, "dtype": tag, "shape": list(got.shape),
+                   "views": views, "max_abs": max_abs, "max_rel": rel, "tol_rel": K4_TOL[tag],
+                   "library_max_abs_vs_kernel": float((lib.float() - got.float()).abs().max())}
+            del got, lib
+            row["ms"] = cuda_ms(lambda: [plane_sweep_sample(x, p, ref_p, dv)
+                                         for x, p in zip(srcs, src_p)], 10)
+            row["ms_per_launch"] = row["ms"] / views
+            row["plain_ms"] = cuda_ms(lambda: [plane_sweep_warp(x, p, ref_p, dv)
+                                               for x, p in zip(srcs, src_p)], 1, 1)
+            row["library_ms"] = cuda_ms(library, 10)
+            row["kernel_ms"] = device_ms(lambda: [plane_sweep_sample(x, p, ref_p, dv)
+                                                  for x, p in zip(srcs, src_p)],
+                                         "sweep_sampler_kernel")
+            row["library_kernel_ms"] = device_ms(library, "grid_sampler")
+            bound, row["bound_by"] = k4_bound_ms(b, dv.shape[1], h, w, c,
+                                                 srcs[0].element_size(), dv.dim() == 4)
+            row["bound_ms"] = views * bound
+            print("K4", json.dumps(row), flush=True)
+            check(rel <= K4_TOL[tag], f"K4 stage {stage_idx + 1} {tag}: "
+                  f"max rel {rel} > {K4_TOL[tag]}")
+            rows.append(row)
+            del grids, nchw
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_variance(sample, model, dev):
+    """The variance cascade: timed requests with the launch counters, then
+    the depth against the plain versions, with and without geo fusion."""
+    import numpy as np
+    import torch
+    from damvsnet_tpu_torch.infer import DepthRunner
+    from damvsnet_tpu_torch.model import CascadeMVSNet
+    from damvsnet_tpu_torch.utils.weights import load_bench_weights
+    batch = serving_batch(sample)
+    rng = float(sample["depth_values"][-1] - sample["depth_values"][0])
+    runner = DepthRunner(model, device=dev)
+    model.compute_dtype, model.plain = torch.bfloat16, False
+    warm_ms, times, out, launches, peak_gib = timed_requests(runner, batch)
+    print("variance cascade", json.dumps({"warmup_ms": warm_ms, "request_ms": times,
+                                          "peak_mem_gib": peak_gib, "launches": launches}),
+          flush=True)
+    check_launches("variance cascade", launches, {"prob_volume_stats_fused": 3,
+                                                  "plane_sweep_sample": 3 * (NVIEWS - 1)},
+                   REQUESTS)
+    depth = out["depth"]
+    check(depth.shape == (1, HEIGHT, WIDTH), f"variance depth shape {depth.shape}")
+    check(bool(np.isfinite(depth).all()), "non-finite variance depth")
+    # information only: the weights were trained with adaptive aggregation
+    print("variance cascade vs scene depth", json.dumps({
+        "median_abs_err": float(np.median(np.abs(depth - sample["depth"]["stage3"][None]))),
+        "depth_range": rng}), flush=True)
+    parity = {"geo_fusion": depth_parity(runner, model, batch, rng, depth)}
+
+    no_geo = CascadeMVSNet(ndepths=NDEPTHS, compute_dtype=torch.bfloat16, device=dev,
+                           agg_mode="variance", use_geo_fusion=False)
+    load_bench_weights(no_geo, SERVING_WEIGHTS)  # warns: geo fusion and the weight nets go
+    runner = DepthRunner(no_geo, device=dev)
+    parity["no_geo_fusion"] = depth_parity(runner, no_geo, batch, rng, runner(batch)["depth"])
+    print("variance cascade vs plain", json.dumps(parity), flush=True)
+    for config, by_dtype in parity.items():
+        for tag, p in by_dtype.items():
+            check(p["p999_abs"] <= p["tol"], f"variance cascade ({config}) {tag}: depth "
+                  f"p999 {p['p999_abs']} > {p['tol']}")
+    return launches, float(np.mean(times))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -542,7 +736,7 @@ def main():
     sample = make_synthetic_sample(height=HEIGHT, width=WIDTH, nviews=NVIEWS,
                                    ndepths=D0, with_gt=True, seed=SEED)
     model = CascadeMVSNet(ndepths=NDEPTHS, compute_dtype=torch.bfloat16, device=dev)
-    load_bench_weights(model, "weights/bench_ckpt.npz")
+    load_bench_weights(model, SERVING_WEIGHTS)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -550,7 +744,6 @@ def main():
         k1 = phase_k1(sample, model, dev)
         k2 = phase_k2(sample, dev)
     launches, request_ms = phase_cascade(sample, model, dev)
-    del sample
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -559,11 +752,24 @@ def main():
     del model
     torch.cuda.empty_cache()
     train_launches, step_ms, train_peak = phase_train(dev)
+    torch.cuda.empty_cache()
+
+    model = CascadeMVSNet(ndepths=NDEPTHS, compute_dtype=torch.bfloat16, device=dev,
+                          agg_mode="variance")
+    load_bench_weights(model, SERVING_WEIGHTS)  # warns: the weight nets are dropped
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        k4 = phase_k4(sample, model, dev)
+    var_launches, var_request_ms = phase_variance(sample, model, dev)
 
     def summary(name, rows, source, replaces, counter):
+        """bf16 rows summed over the stages (one request's or one step's
+        launches); library_ms where one PyTorch call computes the same."""
         main_rows = [r for r in rows if r["dtype"] == "bf16"]
-        by_path = {"serving": launches.get(counter, 0),
-                   "training": train_launches.get(counter, 0)}
+        by_path = {"serving": launches[counter], "training": train_launches[counter],
+                   "serving_variance": var_launches[counter]}
+        library = [r.get("library_ms") for r in main_rows]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": max(r["max_abs"] for r in main_rows),
@@ -571,7 +777,7 @@ def main():
                 "plain_ms": sum(r["plain_ms"] for r in main_rows),
                 "bound_ms": sum(r["bound_ms"] for r in main_rows),
                 "bound_by": max(main_rows, key=lambda r: r["bound_ms"])["bound_by"],
-                "library_ms": None}
+                "library_ms": None if None in library else sum(library)}
 
     kernels = [
         summary("fused_adaptive_cost_volume", k1,
@@ -586,10 +792,15 @@ def main():
                 "damvsnet_tpu_torch/ops/kernels/csrc/fused_costvol_bwd.cu",
                 "damvsnet_tpu/ops/pallas/fused_costvol_vjp.py:373",
                 "fused_adaptive_cost_volume_backward"),
+        summary("plane_sweep_sample", k4,
+                "damvsnet_tpu_torch/ops/kernels/csrc/sweep_sampler.cu",
+                "damvsnet_tpu/ops/pallas/sweep_sampler.py:304",
+                "plane_sweep_sample"),
     ]
     print(f"cascade: {request_ms:.3f} ms per request (bf16, {smi})", flush=True)
     print(f"training: {step_ms:.3f} ms per step, peak {train_peak:.2f} GiB "
           f"(512x640, B=4, N=5, bf16, {smi})", flush=True)
+    print(f"variance cascade: {var_request_ms:.3f} ms per request (bf16, {smi})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,12 @@ debug-NaN flags).
         --logdir ./checkpoints --epochs 16 --batch_size 4 --nviews 5 \
         --numdepth 192 --loadckpt weights/bench_ckpt.npz
 
-It trains the fused configuration (fpn, geo fusion, adaptive aggregation
-with the folded weight net, detached handoff, clamped samples; the fused
-cost volume K1 with its backward K3 on the card) on CUDA, or on the device
-``--device`` names. Flags for what the port does not have yet raise,
-naming the ROADMAP item.
+It trains the fused configuration (fpn, adaptive aggregation with the
+folded weight net, detached handoff, clamped samples; the fused cost
+volume K1 with its backward K3 on the card), with geo fusion unless
+``--no_geo_fusion`` and U-Net widths ``--cr_base_chs``, on CUDA, or on
+the device ``--device`` names. Flags for what the port does not have yet
+raise, naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -20,12 +21,11 @@ import time
 
 _VARIANTS = "ROADMAP Queue 1, the variants slice"
 _UNSUPPORTED = {
-    "agg_mode variance": f"variance aggregation ({_VARIANTS})",
+    "agg_mode variance": "training with variance aggregation (it serves; the "
+                         "non-fused training path, ROADMAP Queue 1 item 10.1)",
     "use_fmt": "FMT (ROADMAP Queue 1 item 11)",
-    "no_geo_fusion": f"cascade without geo fusion ({_VARIANTS})",
     "grad_method undetach": f"undetached stage handoff ({_VARIANTS})",
     "share_cr": f"shared cost regularizer ({_VARIANTS})",
-    "cr_base_chs": f"cost regularizer of widths other than 8,8,8 ({_VARIANTS})",
     "profile_dir": "torch.profiler trace of training (ROADMAP Queue 1 item 14)",
 }
 
@@ -86,10 +86,8 @@ def check_supported(args) -> None:
     asked = {
         "agg_mode variance": args.agg_mode == "variance",
         "use_fmt": args.use_fmt,
-        "no_geo_fusion": args.no_geo_fusion,
         "grad_method undetach": args.grad_method == "undetach",
         "share_cr": args.share_cr,
-        "cr_base_chs": tuple(int(x) for x in args.cr_base_chs.split(",") if x) != (8, 8, 8),
         "profile_dir": args.profile_dir is not None,
     }
     for flag, on in asked.items():
@@ -121,7 +119,9 @@ def main(argv=None):
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     else:
         dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[args.dtype]
-    model = CascadeMVSNet(ndepths=ndepths, compute_dtype=dtype, device=device)
+    cr_base_chs = tuple(int(x) for x in args.cr_base_chs.split(",") if x)
+    model = CascadeMVSNet(ndepths=ndepths, compute_dtype=dtype, device=device,
+                          use_geo_fusion=not args.no_geo_fusion, cr_base_chs=cr_base_chs)
 
     train_dataset = dataset_cls(args.trainpath, args.trainlist, "train",
                                 args.nviews, args.numdepth, args.interval_scale)

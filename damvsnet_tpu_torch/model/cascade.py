@@ -1,21 +1,26 @@
 """CascadeMVSNet forward, serving and training (counterpart of
-damvsnet_tpu/model/cascade.py in the shipped serving configuration and in
-the fused-VJP training configuration, ``fused_train=True``).
+damvsnet_tpu/model/cascade.py in the shipped serving configuration, its
+variance-aggregation variant and the fused-VJP training configuration,
+``fused_train=True``).
 
   views:     fpn FeatureNet; at inference all N views as one batch, in
              training one call per view (batch-statistics BN must not see
              the views folded into the batch; cascade.py:309-311)
-  per stage: GeoFeatureFusion replaces the ref feature at stages 2/3,
-             conditioned on the previous stage's depth (not detached: in
-             training stages 2 and 3 send gradient back into stage 1)
+  per stage: GeoFeatureFusion replaces the ref feature at stages 2/3
+             (``use_geo_fusion``), conditioned on the previous stage's
+             depth (not detached: in training stages 2 and 3 send gradient
+             back into stage 1)
              -> ADIA depth sampling at full resolution from the DETACHED
                 previous depth and sigma, clamped into the input sweep
-                range -> trilinear snap to stage resolution
-                (stage 1: the uniform sweep is built at stage resolution
-                directly, and never materialized)
-             -> fused adaptive cost volume (CUDA kernel K1; in training a
-                torch.autograd.Function whose backward is kernel K3)
-             -> CostRegNet 3-D U-Net
+                range (``clamp_samples``) -> trilinear snap to stage
+                resolution (stage 1: the uniform sweep is built at stage
+                resolution directly, and never materialized)
+             -> cost volume: adaptive, the fused CUDA kernel K1 (in
+                training a torch.autograd.Function whose backward is kernel
+                K3); or variance, ``ops.costvol.variance_cost_volume`` over
+                the plane-sweep sampler kernel K4, one launch per source
+                view (inference only: K4 has no backward)
+             -> CostRegNet 3-D U-Net (base widths ``cr_base_chs``)
              -> fp32 stats tail: softmax, soft-argmin depth, confidence,
                 3-sigma band (CUDA kernel K2 at inference; in training the
                 plain version under autograd, as the JAX package trains
@@ -24,13 +29,12 @@ the fused-VJP training configuration, ``fused_train=True``).
 
 ``model.train()`` selects training: BatchNorm uses batch statistics
 (nn/blocks.py), except in the folded weight net, which keeps its running
-statistics (nn/aggweight.py). The clamp is always on
-(``clamp_samples=True`` of both shipped configurations). Inputs keep the
-JAX layout: images [B, N, H, W, 3], proj_matrices {stage: [B, N, 2, 4, 4]}
-(extrinsics in slot 0, stage K in slot 1), depth_values [B, D0]. The
-per-stage output dicts carry the JAX keys (depth, photometric_confidence,
-variance, prob_volume, depth_values); the top level repeats stage 3. There
-is no ``sampler_overflow``: the fused kernel gathers every tap.
+statistics (nn/aggweight.py). Inputs keep the JAX layout: images
+[B, N, H, W, 3], proj_matrices {stage: [B, N, 2, 4, 4]} (extrinsics in
+slot 0, stage K in slot 1), depth_values [B, D0]. The per-stage output
+dicts carry the JAX keys (depth, photometric_confidence, variance,
+prob_volume, depth_values); the top level repeats stage 3. There is no
+``sampler_overflow``: the kernels gather every tap.
 """
 from __future__ import annotations
 
@@ -43,13 +47,15 @@ from ..nn.aggweight import AggWeightNetVolume, fold_aggweight
 from ..nn.costreg import CostRegNet
 from ..nn.feature import FeatureNet
 from ..nn.geofusion import GeoFeatureFusion
+from ..ops.costvol import variance_cost_volume
 from ..ops.kernels.fused_costvol import (fused_adaptive_cost_volume,
                                          fused_adaptive_cost_volume_plain)
 from ..ops.kernels.probstats import prob_volume_stats_fused
+from ..ops.kernels.sweep_sampler import plane_sweep_sample
 from ..ops.regression import prob_volume_stats
 from ..ops.resize import resize_bilinear, resize_trilinear_depth
 from ..ops.sampling import uncertainty_aware_samples
-from ..ops.warp import matmul_fp32
+from ..ops.warp import matmul_fp32, plane_sweep_warp
 from ..utils.device import resolve_device
 
 STAGE_CHANNELS = (32, 16, 8)  # FPN output channels, stages 1..3
@@ -78,34 +84,53 @@ class CascadeMVSNet(nn.Module):
 
     ndepths: hypotheses per stage. compute_dtype: the convolutions' dtype
     (bf16 to serve and train, fp32 for parity); the stats tail is always
-    fp32. plain: run the kernels' plain PyTorch versions instead of the
-    CUDA kernels (under autograd in training) — a reference for checking
-    the kernels on the card; nothing selects it on its own. device: where
-    the parameters live, CUDA unless the caller names another; raises if
-    CUDA is absent.
+    fp32. agg_mode: "adaptive" (the weight net, K1) or "variance" (K4,
+    inference only). use_geo_fusion: GeoFeatureFusion at stages 2/3.
+    cr_base_chs: each stage's U-Net base width. clamp_samples: clip the
+    stage-2/3 hypotheses into the input sweep range. align_corners: the
+    sampler's grid un-normalization, read only in variance mode (as in the
+    JAX package). plain: run the kernels' plain PyTorch versions instead of
+    the CUDA kernels (under autograd in training) — a reference for
+    checking the kernels on the card; nothing selects it on its own.
+    device: where the parameters live, CUDA unless the caller names
+    another; raises if CUDA is absent. The defaults are the shipped
+    configuration.
     """
 
     def __init__(self, ndepths: Sequence[int] = (64, 32, 8),
                  compute_dtype: torch.dtype = torch.float32,
-                 plain: bool = False, device=None):
+                 plain: bool = False, device=None, agg_mode: str = "adaptive",
+                 use_geo_fusion: bool = True,
+                 cr_base_chs: Sequence[int] = (8, 8, 8),
+                 clamp_samples: bool = True, align_corners: bool = False):
         super().__init__()
-        if len(ndepths) != 3:
-            raise ValueError(f"the cascade has 3 stages, got ndepths={ndepths}")
+        if len(ndepths) != 3 or len(cr_base_chs) != 3:
+            raise ValueError(f"the cascade has 3 stages, got ndepths={ndepths}, "
+                             f"cr_base_chs={cr_base_chs}")
+        if agg_mode not in ("adaptive", "variance"):
+            raise ValueError(f"agg_mode {agg_mode!r} is neither 'adaptive' nor 'variance'")
+        if align_corners and agg_mode != "variance":
+            raise ValueError("align_corners is read only by the variance cost volume")
         self.ndepths = tuple(ndepths)
         self.compute_dtype = compute_dtype
         self.plain = plain
+        self.agg_mode = agg_mode
+        self.use_geo_fusion = use_geo_fusion
+        self.clamp_samples = clamp_samples
+        self.align_corners = align_corners
         self.feature = FeatureNet(base_channels=8)
-        self.GeoFeatureFusionNet = GeoFeatureFusion()
+        if use_geo_fusion:
+            self.GeoFeatureFusionNet = GeoFeatureFusion()
         self.cost_regularization = nn.ModuleList(
-            CostRegNet(c, base_channels=8) for c in STAGE_CHANNELS)
-        self.DepthNet = DepthNet(STAGE_CHANNELS)
+            CostRegNet(c, base_channels=base)
+            for c, base in zip(STAGE_CHANNELS, cr_base_chs))
+        if agg_mode == "adaptive":
+            self.DepthNet = DepthNet(STAGE_CHANNELS)
         self.to(resolve_device(device))
         self.eval()
 
     def forward(self, imgs: torch.Tensor, proj_matrices: dict,
                 depth_values: torch.Tensor) -> dict:
-        costvol = (fused_adaptive_cost_volume_plain if self.plain
-                   else fused_adaptive_cost_volume)
         stats = (prob_volume_stats if self.plain or self.training
                  else prob_volume_stats_fused)
         b, n, height, width, _ = imgs.shape
@@ -122,16 +147,17 @@ class CascadeMVSNet(nn.Module):
             ref_fea, *src_feas = (v[name] for v in views)
 
             if stage_idx >= 1:
-                ref_img = resize_bilinear(imgs[:, 0].float(), (stage_h, stage_w))
-                depth_in = resize_bilinear(depth[..., None],
-                                           (depth.shape[1] * 2, depth.shape[2] * 2))
-                # the fused feature comes back NCHW from the transposed
-                # convs, so this NHWC contiguous() is a copy (8 MB at
-                # stage 2, 16 MB at stage 3 in bf16 at 1152x864)
-                ref_fea = self.GeoFeatureFusionNet(
-                    ref_img.permute(0, 3, 1, 2), depth_in.permute(0, 3, 1, 2),
-                    depth_values, stage_idx, ref_fea.permute(0, 3, 1, 2),
-                ).permute(0, 2, 3, 1).contiguous()
+                if self.use_geo_fusion:
+                    ref_img = resize_bilinear(imgs[:, 0].float(), (stage_h, stage_w))
+                    depth_in = resize_bilinear(depth[..., None],
+                                               (depth.shape[1] * 2, depth.shape[2] * 2))
+                    # the fused feature comes back NCHW from the transposed
+                    # convs, so this NHWC contiguous() is a copy (8 MB at
+                    # stage 2, 16 MB at stage 3 in bf16 at 1152x864)
+                    ref_fea = self.GeoFeatureFusionNet(
+                        ref_img.permute(0, 3, 1, 2), depth_in.permute(0, 3, 1, 2),
+                        depth_values, stage_idx, ref_fea.permute(0, 3, 1, 2),
+                    ).permute(0, 2, 3, 1).contiguous()
                 # the handoff is detached ("detach" grad method)
                 cur_depth = resize_bilinear(depth.detach()[..., None],
                                             (height, width))[..., 0][:, None]
@@ -139,17 +165,16 @@ class CascadeMVSNet(nn.Module):
                                           (height, width))[..., 0][:, None]
                 samples = uncertainty_aware_samples(cur_depth, cur_var, ndepth,
                                                     height, width)
-                samples = torch.minimum(torch.maximum(samples, dmin), dmax)
+                if self.clamp_samples:
+                    samples = torch.minimum(torch.maximum(samples, dmin), dmax)
                 samples = resize_trilinear_depth(samples, (ndepth, stage_h, stage_w))
             else:
                 samples = uncertainty_aware_samples(depth_values, None, ndepth,
                                                     stage_h, stage_w)
 
             fused = fuse_projection_matrices(proj_matrices[name])
-            w1, b1, w2, b2 = fold_aggweight(self.DepthNet.weight_net[stage_idx])
-            volume = costvol(ref_fea, src_feas, fused[:, 0],
-                             [fused[:, v] for v in range(1, n)], samples,
-                             w1, b1, w2, b2)  # [B, D, h, w, C]
+            volume = self._cost_volume(stage_idx, ref_fea, src_feas, fused[:, 0],
+                                       [fused[:, v] for v in range(1, n)], samples)
             cost = self.cost_regularization[stage_idx](volume.permute(0, 4, 1, 2, 3))
             out = stats(cost[:, 0].float(), samples)
             out["depth_values"] = samples
@@ -157,6 +182,19 @@ class CascadeMVSNet(nn.Module):
             outputs[name] = out
         outputs.update(outputs["stage3"])
         return outputs
+
+    def _cost_volume(self, stage_idx, ref_fea, src_feas, ref_proj, src_projs, samples):
+        """[B, D, h, w, C] in the feature dtype, contiguous: its
+        ``permute(0, 4, 1, 2, 3)`` is a channels_last_3d view."""
+        if self.agg_mode == "variance":
+            return variance_cost_volume(
+                ref_fea, src_feas, ref_proj, src_projs, samples,
+                warp=plane_sweep_warp if self.plain else plane_sweep_sample,
+                align_corners=self.align_corners)
+        costvol = (fused_adaptive_cost_volume_plain if self.plain
+                   else fused_adaptive_cost_volume)
+        w1, b1, w2, b2 = fold_aggweight(self.DepthNet.weight_net[stage_idx])
+        return costvol(ref_fea, src_feas, ref_proj, src_projs, samples, w1, b1, w2, b2)
 
     def _view_features(self, imgs: torch.Tensor) -> list[dict]:
         """Per view, {stage: NHWC [B, h, w, C] feature map}. At inference

@@ -1,14 +1,19 @@
-"""Adaptive cost-volume aggregation (counterpart of
-damvsnet_tpu/ops/costvol.py, mode="adaptive"). This is the plain version
-of the fused CUDA kernel in ops/kernels/fused_costvol.py:
+"""Cost-volume aggregation (counterpart of damvsnet_tpu/ops/costvol.py).
 
-    diff_v = (ref - warp_v)^2
-    w_v    = weight_fn(diff_v)                  (AggWeightNetVolume)
-    agg    = sum_v (w_v + 1) * diff_v / (N - 1)
+  * ``build_cost_volume``, mode "adaptive" (the plain version of the fused
+    CUDA kernel in ops/kernels/fused_costvol.py):
+        diff_v = (ref - warp_v)^2
+        w_v    = weight_fn(diff_v)                  (AggWeightNetVolume)
+        agg    = sum_v (w_v + 1) * diff_v / (N - 1)
+  * ``variance_cost_volume``, mode "variance": the variance over the N
+    volumes {ref, warp_v}, the reference replicated over D:
+    E[f^2] - E[f]^2.
 
-The sum runs in fp32 whatever the feature dtype, and the result is cast
-to the feature dtype, as the kernel does. One warped volume at a time is
-alive. Layout: features NHWC; the volume [B, D, H, W, C].
+The sums run in fp32 whatever the feature dtype, and the result is cast
+to the feature dtype once, as the fused kernel does (the JAX package's
+variance mode rounds every partial sum to bf16 in bf16; ROADMAP Queue 3).
+One warped volume at a time is alive. Layout: features NHWC; the volume
+[B, D, H, W, C] contiguous.
 """
 from __future__ import annotations
 
@@ -35,3 +40,23 @@ def build_cost_volume(ref_fea: torch.Tensor, src_feas: Sequence[torch.Tensor],
         contrib = (weight_fn(diff_sq) + 1.0) * diff_sq
         vol = contrib if vol is None else vol + contrib
     return (vol / len(src_feas)).to(ref_fea.dtype)
+
+
+def variance_cost_volume(ref_fea: torch.Tensor, src_feas: Sequence[torch.Tensor],
+                         ref_proj: torch.Tensor, src_projs: Sequence[torch.Tensor],
+                         depth_values: torch.Tensor, warp: Callable = plane_sweep_warp,
+                         align_corners: bool = False) -> torch.Tensor:
+    """Shapes as ``build_cost_volume``; warp(src_fea, src_proj, ref_proj,
+    depth_values, align_corners) -> [B,D,H,W,C] in fp32 or the feature
+    dtype: ``ops.warp.plane_sweep_warp`` or the sampler kernel
+    ``ops.kernels.sweep_sampler.plane_sweep_sample``. The fp32 sums take a
+    bf16 warp as it is (a bf16 product is exact in fp32), so no fp32 copy
+    of it is made. Returns [B,D,H,W,C] in the feature dtype."""
+    ref_volume = ref_fea.float()[:, None]
+    vol, sq = ref_volume, ref_volume ** 2  # broadcast over D by the first view
+    for src_fea, src_proj in zip(src_feas, src_projs):
+        warped = warp(src_fea, src_proj, ref_proj, depth_values, align_corners)
+        vol = vol + warped
+        sq = torch.addcmul(sq, warped, warped)
+    n = len(src_feas) + 1
+    return (sq / n - (vol / n) ** 2).to(ref_fea.dtype)

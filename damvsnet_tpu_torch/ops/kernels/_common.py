@@ -3,6 +3,12 @@ from __future__ import annotations
 
 import torch
 
+# what the plane-sweep kernels (csrc/sampling.cuh) take: feature dtypes,
+# with the code each entry point reads, and channel counts (whole 16-byte
+# vectors of 8 channels)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+SUPPORTED_CHANNELS = (8, 16, 32)
+
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     """All tensors on one CUDA device; returns it. Raises otherwise."""

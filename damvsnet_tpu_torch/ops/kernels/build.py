@@ -4,8 +4,10 @@ Each source in ``csrc/`` is a plain-C shared library: nvcc compiles it for
 ``sm_90a`` without PyTorch's headers (a build takes seconds), and the
 wrappers load it with ``ctypes`` and pass pointers and the stream as
 ``c_void_p``. Builds go to ``_build/`` beside this file, named by a hash
-of the source, so an edited source is rebuilt and a stale library is never
-loaded. Nothing is built or loaded when this module is imported.
+of the source and of every header in ``csrc/`` (``sampling.cuh`` is shared
+by the plane-sweep kernels), so an edited source or header is rebuilt and
+a stale library is never loaded. Nothing is built or loaded when this
+module is imported.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("fused_costvol", "fused_costvol_bwd", "probstats")
+SOURCES = ("fused_costvol", "fused_costvol_bwd", "probstats", "sweep_sampler")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,9 +40,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of csrc/<name>.cu, named by what its build reads: the
+    source, every header in csrc/ and the flags."""
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names=SOURCES) -> dict[str, str]:

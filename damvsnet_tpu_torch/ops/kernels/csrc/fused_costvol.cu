@@ -34,60 +34,18 @@
 // 1.06 / 1.29 / 0.86 ms for stages 1/2/3 in bf16 against bounds of
 // 0.123 / 0.137 / 0.083 ms: the thread per voxel re-gathers the same taps
 // for every hypothesis, which a later version can share.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sampling.cuh"
 
 namespace {
+
+using sweep::load8;
+using sweep::store8;
 
 constexpr int kMaxViews = 16;
 
 struct SrcPtrs {
   const void* p[kMaxViews];
 };
-
-__device__ __forceinline__ void load8(const float* p, float* out) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = reinterpret_cast<const uint4*>(p)[0];
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h[j]);
-    out[2 * j] = f.x;
-    out[2 * j + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store8(float* p, const float* v) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
-  uint4 raw;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) h[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
-  reinterpret_cast<uint4*>(p)[0] = raw;
-}
-
-// warp[c] += wt * src[c] for one tap's contiguous C-vector
-template <typename T, int C>
-__device__ __forceinline__ void accum_tap(const T* p, float wt, float* warp) {
-#pragma unroll
-  for (int k = 0; k < C; k += 8) {
-    float v[8];
-    load8(p + k, v);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) warp[k + j] = fmaf(wt, v[j], warp[k + j]);
-  }
-}
 
 // params: w1[C], then b1, w2, b2, 1/(N-1)
 template <typename T, int C>
@@ -125,31 +83,11 @@ fused_costvol_kernel(const T* __restrict__ ref, long long ref_bstride,
   for (int c = 0; c < C; ++c) acc[c] = 0.f;
 
   for (int v = 0; v < V; ++v) {
-    const float* g = geom + ((long long)v * B + b) * 12;
-    const float nx = (g[0] * xf + (g[1] * yf + g[2])) * depth + g[9];
-    const float ny = (g[3] * xf + (g[4] * yf + g[5])) * depth + g[10];
-    const float nz = (g[6] * xf + (g[7] * yf + g[8])) * depth + g[11];
-    const float px = nx / nz * sx + ox;
-    const float py = ny / nz * sy + oy;
-
+    float px, py;
+    sweep::project(geom + ((long long)v * B + b) * 12, xf, yf, depth, sx, ox, sy, oy, px, py);
     float warp[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) warp[c] = 0.f;
-    // bounds are tested in float before any cast to int: a non-finite or
-    // huge coordinate samples to zero and never wraps into a valid index
-    // (isfinite is implied by the comparisons, which are false for NaN)
-    if (px > -1.f && px < (float)W && py > -1.f && py < (float)H) {
-      const float x0f = floorf(px), y0f = floorf(py);
-      const float wx = px - x0f, wy = py - y0f;
-      const int x0 = (int)x0f, y0 = (int)y0f;
-      const T* base = reinterpret_cast<const T*>(src.p[v]) + b * src_bstride;
-      const bool xa = x0 >= 0, xb = x0 + 1 <= W - 1;
-      const bool ya = y0 >= 0, yb = y0 + 1 <= H - 1;
-      if (ya && xa) accum_tap<T, C>(base + ((long long)y0 * W + x0) * C, (1.f - wx) * (1.f - wy), warp);
-      if (ya && xb) accum_tap<T, C>(base + ((long long)y0 * W + x0 + 1) * C, wx * (1.f - wy), warp);
-      if (yb && xa) accum_tap<T, C>(base + ((long long)(y0 + 1) * W + x0) * C, (1.f - wx) * wy, warp);
-      if (yb && xb) accum_tap<T, C>(base + ((long long)(y0 + 1) * W + x0 + 1) * C, wx * wy, warp);
-    }
+    sweep::bilinear_zeros<T, C>(reinterpret_cast<const T*>(src.p[v]) + b * src_bstride,
+                                px, py, H, W, warp);
 
     float s = 0.f;
 #pragma unroll

@@ -47,11 +47,12 @@
 // (0.30 ms). So the kernel is bound by operations at C=32, before any cost
 // of the atomics; chip_smoke.py computes both bounds from each run's
 // shapes and measures the kernel beside them.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sampling.cuh"
 
 namespace {
+
+using sweep::load8;
+using sweep::store8;
 
 constexpr int kMaxViews = 16;
 constexpr int kThreads = 128;
@@ -60,29 +61,6 @@ constexpr int kWarps = kThreads / 32;
 struct SrcPtrs {
   const void* p[kMaxViews];
 };
-
-__device__ __forceinline__ void load8(const float* p, float* out) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = reinterpret_cast<const uint4*>(p)[0];
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h[j]);
-    out[2 * j] = f.x;
-    out[2 * j + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store8(float* p, const float* v) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
 
 // p[0..3] += (a, b, c, d); p is 16-byte aligned (C is a multiple of 8)
 __device__ __forceinline__ void atomic_add4(float* p, float a, float b, float c, float d) {
@@ -104,8 +82,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // The forward's four zero-padded bilinear taps of (px, py): element offsets
 // of the tap's C-vector in the [H, W, C] plane (-1: no tap) and weights.
-// Identical tests to csrc/fused_costvol.cu, so both passes pick the same
-// taps; bounds are tested in float before any cast to int.
+// Identical tests to sweep::bilinear_zeros (sampling.cuh), so forward and
+// backward pick the same taps; bounds are tested in float before any cast
+// to int.
 struct Taps {
   long long off[4];
   float wt[4];
@@ -175,11 +154,8 @@ fused_costvol_bwd_kernel(const T* __restrict__ ref, long long ref_bstride,
       const T* ctp = cot + (((long long)b * D + d) * H * W + pix) * C;
       for (int v = 0; v < V; ++v) {
         const float* g = geom + ((long long)v * B + b) * 12;
-        const float nx = (g[0] * xf + (g[1] * yf + g[2])) * depth + g[9];
-        const float ny = (g[3] * xf + (g[4] * yf + g[5])) * depth + g[10];
-        const float nz = (g[6] * xf + (g[7] * yf + g[8])) * depth + g[11];
-        const float px = nx / nz * sx + ox;
-        const float py = ny / nz * sy + oy;
+        float px, py;
+        sweep::project(g, xf, yf, depth, sx, ox, sy, oy, px, py);
         const Taps t = make_taps<C>(px, py, H, W);
         const T* base = reinterpret_cast<const T*>(src.p[v]) + b * src_bstride;
 

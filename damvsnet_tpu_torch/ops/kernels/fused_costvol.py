@@ -29,12 +29,11 @@ import torch
 
 from ..costvol import build_cost_volume
 from ..warp import geom_from_projs, pixel_affine
-from ._common import check_cuda, check_launch, depth_argument
+from ._common import (DTYPE_CODES, SUPPORTED_CHANNELS, check_cuda, check_launch,
+                      depth_argument)
 from .build import load
 
-SUPPORTED_CHANNELS = (8, 16, 32)
 MAX_VIEWS = 16  # kMaxViews in the CUDA sources
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def folded_weight_fn(w1, b1, w2, b2):
@@ -97,7 +96,7 @@ def _prepare(name, ref_fea, src_feas, ref_proj, src_projs, depth_values) -> _Lau
     """Check the inputs (raise on what the kernels do not take) and build
     the per-view geometry."""
     dev = check_cuda(name, ref_fea, *src_feas, ref_proj, *src_projs, depth_values)
-    if ref_fea.dtype not in _DTYPES:
+    if ref_fea.dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: feature dtype {ref_fea.dtype} is not float32 "
                          "or bfloat16")
     b, h, w, c = ref_fea.shape
@@ -170,7 +169,7 @@ def _launch_forward(L: _Launch, params, ref_fea, src_feas) -> torch.Tensor:
              (ctypes.c_void_p * L.v)(*[s.data_ptr() for s in src_feas]),
              L.src_bstride, L.v, L.geom.data_ptr(), L.dv.data_ptr(), L.per_pixel,
              params.data_ptr(), out.data_ptr(), L.b, L.d, L.h, L.w, L.c,
-             _DTYPES[ref_fea.dtype], *L.affine, stream)
+             DTYPE_CODES[ref_fea.dtype], *L.affine, stream)
     check_launch(L.name, err)
     return out
 
@@ -197,7 +196,7 @@ def _launch_backward(L: _Launch, params, ref_fea, src_feas, grad_out):
              L.src_bstride, L.v, L.geom.data_ptr(), L.dv.data_ptr(), L.per_pixel,
              params.data_ptr(), grad_out.data_ptr(), dref.data_ptr(),
              dsrc.data_ptr(), dw.data_ptr(), L.b, L.d, L.h, L.w, L.c,
-             _DTYPES[ref_fea.dtype], *L.affine, stream)
+             DTYPE_CODES[ref_fea.dtype], *L.affine, stream)
     check_launch(L.name, err)
     dt = ref_fea.dtype
     return dref.to(dt), [g.to(dt) for g in dsrc.unbind(0)], dw

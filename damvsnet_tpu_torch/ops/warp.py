@@ -12,7 +12,9 @@ Numerics follow the reference ``homo_warping``:
 
 The (W-1)/2 normalization against an align_corners=False un-normalization
 is the reference's quirk and is kept: it is px = u * W/(W-1) - 0.5, the
-affine form (sx, ox) the fused kernel evaluates.
+affine form (sx, ox) the kernels evaluate. ``align_corners=True`` (read
+only by the variance cost volume, as in the JAX package) un-normalizes as
+px = (gx+1) * (W-1) / 2, which is px = u.
 
 Camera geometry runs in true fp32: the small products are written as
 elementwise multiply-adds, which never take the TF32 tensor-core path
@@ -43,17 +45,22 @@ def geom_from_projs(src_proj: torch.Tensor, ref_proj: torch.Tensor) -> torch.Ten
     return torch.cat([proj[:, :3, :3].reshape(-1, 9), proj[:, :3, 3]], dim=1)
 
 
-def pixel_affine(size: int):
+def pixel_affine(size: int, align_corners: bool = False):
     """(s, o) with px = u * s + o: the normalize/un-normalize round trip."""
+    if align_corners:
+        return 1.0, 0.0
     return size / (size - 1.0), -0.5
 
 
-def _unnormalize(g: torch.Tensor, size: int) -> torch.Tensor:
+def _unnormalize(g: torch.Tensor, size: int, align_corners: bool) -> torch.Tensor:
+    if align_corners:
+        return (g + 1.0) * (size - 1) / 2.0
     return ((g + 1.0) * size - 1.0) / 2.0
 
 
 def plane_sweep_grid(src_proj: torch.Tensor, ref_proj: torch.Tensor,
-                     depth_values: torch.Tensor, height: int, width: int):
+                     depth_values: torch.Tensor, height: int, width: int,
+                     align_corners: bool = False):
     """Source-image pixel coordinates (px, py), each [B, D, H, W].
 
     src_proj, ref_proj: [B, 4, 4] fused K·[R|t]; depth_values [B, D] or
@@ -76,8 +83,8 @@ def plane_sweep_grid(src_proj: torch.Tensor, ref_proj: torch.Tensor,
     v = proj_xyz[:, 1] / z
     gx = u / ((width - 1) / 2.0) - 1.0
     gy = v / ((height - 1) / 2.0) - 1.0
-    px = _unnormalize(gx, width).reshape(b, d, height, width)
-    py = _unnormalize(gy, height).reshape(b, d, height, width)
+    px = _unnormalize(gx, width, align_corners).reshape(b, d, height, width)
+    py = _unnormalize(gy, height, align_corners).reshape(b, d, height, width)
     return px, py
 
 
@@ -117,9 +124,11 @@ def bilinear_sample_zeros(img: torch.Tensor, px: torch.Tensor,
 
 
 def plane_sweep_warp(src_fea: torch.Tensor, src_proj: torch.Tensor,
-                     ref_proj: torch.Tensor, depth_values: torch.Tensor) -> torch.Tensor:
+                     ref_proj: torch.Tensor, depth_values: torch.Tensor,
+                     align_corners: bool = False) -> torch.Tensor:
     """Warp source features over depth hypotheses into the reference
-    frustum: [B, H, W, C] -> [B, D, H, W, C] fp32."""
+    frustum: [B, H, W, C] -> [B, D, H, W, C] fp32. The plain version of
+    the plane-sweep sampler kernel (ops/kernels/sweep_sampler.py)."""
     _, h, w, _ = src_fea.shape
-    px, py = plane_sweep_grid(src_proj, ref_proj, depth_values, h, w)
+    px, py = plane_sweep_grid(src_proj, ref_proj, depth_values, h, w, align_corners)
     return bilinear_sample_zeros(src_fea, px, py)

@@ -5,8 +5,12 @@ reference PyTorch checkpoint loads with ``load_state_dict`` and the JAX
 package's ``transplant_cascade(port.state_dict())`` maps the port's weights
 onto JAX variables. This module is the other direction: a flax checkpoint
 flattened to "params/<path>" / "batch_stats/<path>" keys (as in
-``weights/bench_ckpt.npz``) becomes a state_dict for the full serving
-model (3 stages, geo fusion, adaptive aggregation).
+``weights/bench_ckpt.npz``) becomes a state_dict for a model of the given
+configuration (3 stages; by default the full serving model: geo fusion,
+adaptive aggregation). The table of keys follows the configuration: no
+weight-net rows in variance mode, no geo-fusion rows without it; the U-Net
+widths (``cr_base_chs``) are the arrays' own, and ``load_state_dict``
+checks them against the model.
 
 Layout permutations (flax -> torch, the inverse of the JAX package's
 transplant):
@@ -20,6 +24,8 @@ BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
 running_mean/running_var; num_batches_tracked (absent in flax) is 0.
 """
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -41,9 +47,9 @@ _COSTREG_DECONV = {"conv7": "Deconv3dBlock_0", "conv9": "Deconv3dBlock_1",
                    "conv11": "Deconv3dBlock_2"}
 
 
-def _table():
-    """[(torch key, flax key or None, permutation or None)] for the full
-    serving model. A None flax key marks num_batches_tracked."""
+def _table(agg_mode="adaptive", use_geo_fusion=True):
+    """[(torch key, flax key or None, permutation or None)] for a model of
+    this configuration. A None flax key marks num_batches_tracked."""
     rows = []
 
     def conv(tkey, fpath, nd, bias=False):
@@ -80,18 +86,19 @@ def _table():
         conv(f"feature.{name}", f"feature/{name}", 2, bias=True)
 
     g, p = "GeoFeatureFusionNet", "geo_fusion"
-    for layer in _GEO_SEQ_CONV:
-        conv(f"{g}.{layer}.0", f"{p}/{layer}/Conv_0", 2)
-        bn(f"{g}.{layer}.1", f"{p}/{layer}")
-    for layer in _GEO_BASIC:
-        for tconv, tbn, fsub in (("conv1", "bn1", "conv1"),
-                                 ("conv2", "bn2", "conv2"),
-                                 ("downsample.0", "downsample.1", "downsample")):
-            conv(f"{g}.{layer}.{tconv}", f"{p}/{layer}/{fsub}/Conv_0", 2)
-            bn(f"{g}.{layer}.{tbn}", f"{p}/{layer}/{fsub}")
-    for layer in _GEO_SEQ_DECONV:
-        deconv(f"{g}.{layer}.0", f"{p}/{layer}", 2)
-        bn(f"{g}.{layer}.1", f"{p}/{layer}")
+    if use_geo_fusion:
+        for layer in _GEO_SEQ_CONV:
+            conv(f"{g}.{layer}.0", f"{p}/{layer}/Conv_0", 2)
+            bn(f"{g}.{layer}.1", f"{p}/{layer}")
+        for layer in _GEO_BASIC:
+            for tconv, tbn, fsub in (("conv1", "bn1", "conv1"),
+                                     ("conv2", "bn2", "conv2"),
+                                     ("downsample.0", "downsample.1", "downsample")):
+                conv(f"{g}.{layer}.{tconv}", f"{p}/{layer}/{fsub}/Conv_0", 2)
+                bn(f"{g}.{layer}.{tbn}", f"{p}/{layer}/{fsub}")
+        for layer in _GEO_SEQ_DECONV:
+            deconv(f"{g}.{layer}.0", f"{p}/{layer}", 2)
+            bn(f"{g}.{layer}.1", f"{p}/{layer}")
 
     for i in range(3):
         t, f = f"cost_regularization.{i}", f"cost_reg_stage{i + 1}"
@@ -100,20 +107,23 @@ def _table():
         for tname, fname in _COSTREG_DECONV.items():
             block(f"{t}.{tname}", f"{f}/{fname}", 3, transposed=True)
         conv(f"{t}.prob", f"{f}/prob", 3)
-        for j in range(2):
-            block(f"DepthNet.weight_net.{i}.w_net.{j}",
-                  f"agg_weight_stage{i + 1}/Conv3dBlock_{j}", 3)
+        if agg_mode == "adaptive":
+            for j in range(2):
+                block(f"DepthNet.weight_net.{i}.w_net.{j}",
+                      f"agg_weight_stage{i + 1}/Conv3dBlock_{j}", 3)
     return rows
 
 
-def state_dict_from_flax(flat: dict) -> dict:
-    """Flax flat-path arrays -> the port's state_dict (CPU tensors).
+def state_dict_from_flax(flat: dict, agg_mode: str = "adaptive",
+                         use_geo_fusion: bool = True) -> dict:
+    """Flax flat-path arrays -> the state_dict (CPU tensors) of a model of
+    this configuration.
 
-    Raises if a weight of the port has no flax key, or if a flax key is
+    Raises if a weight of the model has no flax key, or if a flax key is
     left over."""
     remaining = dict(flat)
     sd = {}
-    for tkey, fkey, perm in _table():
+    for tkey, fkey, perm in _table(agg_mode, use_geo_fusion):
         if fkey is None:
             sd[tkey] = torch.zeros((), dtype=torch.long)
             continue
@@ -129,11 +139,29 @@ def state_dict_from_flax(flat: dict) -> dict:
     return sd
 
 
+def _flax_modules(rows) -> set[str]:
+    """The top-level flax modules (``feature``, ``geo_fusion``,
+    ``agg_weight_stage1``, ...) that a table reads."""
+    return {fkey.split("/")[1] for _, fkey, _ in rows if fkey is not None}
+
+
 def load_bench_weights(model, path):
     """Load a flax flat-path .npz (e.g. weights/bench_ckpt.npz) into the
-    port's model in place; strict, so a key left over on either side
-    raises. Returns the model."""
+    port's model in place. The checkpoint's keys under a module that the
+    model's configuration lacks (the weight nets ``agg_weight_stage*`` of a
+    variance model, ``geo_fusion`` without geo fusion) are dropped, with
+    one warning that says how many; otherwise strict, so a key left over on
+    either side raises. Returns the model."""
     with np.load(path) as npz:
         flat = {k: npz[k] for k in npz.files}
-    model.load_state_dict(state_dict_from_flax(flat), strict=True)
+    rows = _table(model.agg_mode, model.use_geo_fusion)
+    absent = _flax_modules(_table()) - _flax_modules(rows)
+    dropped = [k for k in flat if k.split("/")[1] in absent]
+    for k in dropped:
+        del flat[k]
+    if dropped:
+        warnings.warn(f"{path}: the model has no {', '.join(sorted(absent))}; dropped "
+                      f"the checkpoint's {len(dropped)} keys under them", stacklevel=2)
+    model.load_state_dict(state_dict_from_flax(flat, model.agg_mode, model.use_geo_fusion),
+                          strict=True)
     return model

@@ -1,12 +1,15 @@
 """Where the PyTorch/CUDA port spends device time, serving or training.
 
-    python3 scripts/profile_torch_cascade.py [--train] [--cudnn-benchmark] [--trace PATH]
+    python3 scripts/profile_torch_cascade.py [--train | --agg-mode variance]
+                                          [--cudnn-benchmark] [--trace PATH]
                                           (repository root, one GPU)
 
 Serving (the default): the cascade (1152x864, N=5, ndepths 64/32/8, bf16,
 the trained weights of weights/bench_ckpt.npz, the synthetic scene of
 chip_smoke.py) through DepthRunner, one warm-up request, then REPEATS
-requests under torch.profiler.
+requests under torch.profiler. ``--agg-mode variance`` serves the
+variance-aggregation cascade instead (the plane-sweep sampler K4, four
+launches a stage; the same weights less the weight nets).
 
 ``--train``: the training step of chip_smoke.py phase 7 (512x640, B=4,
 N=5, D0=192, ndepths 64/32/8, bf16, the trained weights, Adam under the
@@ -40,6 +43,7 @@ FAMILIES = (
     ("K1 fused cost volume", ("fused_costvol_kernel",)),
     ("K3 fused cost volume backward", ("fused_costvol_bwd_kernel",)),
     ("K2 prob stats", ("probstats_kernel",)),
+    ("K4 plane-sweep sampler", ("sweep_sampler_kernel",)),
     ("optimizer (Adam)", ("multi_tensor", "adam")),
     # cuDNN's BN kernels (bn_fw/bn_bw, batchnorm_*) before "cudnn" below
     ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "welford")),
@@ -61,7 +65,7 @@ def family(name: str) -> str:
     return "other"
 
 
-def serving_request():
+def serving_request(agg_mode="adaptive"):
     """Warm DepthRunner up on the serving request; return the request."""
     import torch
     from damvsnet_tpu_torch.data.synthetic import make_synthetic_sample
@@ -74,7 +78,8 @@ def serving_request():
     batch = {"imgs": sample["imgs"][None],
              "proj_matrices": {k: v[None] for k, v in sample["proj_matrices"].items()},
              "depth_values": sample["depth_values"][None]}
-    model = CascadeMVSNet(ndepths=(64, 32, 8), compute_dtype=torch.bfloat16)
+    model = CascadeMVSNet(ndepths=(64, 32, 8), compute_dtype=torch.bfloat16,
+                          agg_mode=agg_mode)
     load_bench_weights(model, "weights/bench_ckpt.npz")
     runner = DepthRunner(model)
     runner(batch)
@@ -125,7 +130,11 @@ def main():
     from damvsnet_tpu_torch.ops.kernels import build
     build.build()
     train = "--train" in args
-    unit, run = ("step", training_step()) if train else ("request", serving_request())
+    agg_mode = args[args.index("--agg-mode") + 1] if "--agg-mode" in args else "adaptive"
+    if train and agg_mode != "adaptive":
+        raise SystemExit("--train profiles the fused adaptive training step only")
+    unit, run = (("step", training_step()) if train
+                 else ("request", serving_request(agg_mode)))
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
@@ -168,7 +177,8 @@ def main():
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         prof.export_chrome_trace(path)
     print(json.dumps({
-        "card": smi, "workload": "training" if train else "serving", f"{unit}s": REPEATS,
+        "card": smi, "workload": "training" if train else "serving",
+        "agg_mode": agg_mode, f"{unit}s": REPEATS,
         f"wall_ms_per_{unit}": wall_ms / REPEATS,
         f"device_busy_ms_per_{unit}": busy_ms / REPEATS,
         "idle_share": 1 - busy_ms / wall_ms,

@@ -20,54 +20,13 @@ from damvsnet_tpu_torch.infer import DepthRunner
 from damvsnet_tpu_torch.model import CascadeMVSNet
 from damvsnet_tpu_torch.ops.kernels import fused_costvol, probstats
 from damvsnet_tpu_torch.utils.weights import state_dict_from_flax
-from conftest import make_rig
+from torch_helpers import cascade_batch as _batch, perturbed_flat, unflat
 
 torch.set_num_threads(1)
 
-B, N, H, W, D0 = 1, 3, 32, 32, 16
+B, H, W = 1, 32, 32
 NDEPTHS = (8, 8, 8)
 STAGES = ("stage1", "stage2", "stage3")
-
-
-def _batch(seed):
-    rs = np.random.default_rng(seed)
-    _, projs = make_rig(batch=B, num_views=N, height=H // 4, width=W // 4,
-                        seed=seed)
-    proj_ms = {}
-    for s in range(1, 4):
-        p = projs.copy()
-        p[:, :, 1, :2, :] *= 2.0 ** (s - 1)
-        proj_ms[f"stage{s}"] = p
-    imgs = rs.random((B, N, H, W, 3)).astype(np.float32)
-    depth_values = np.linspace(4.0, 8.0, D0, dtype=np.float32)[None].repeat(B, 0)
-    return {"imgs": imgs, "proj_matrices": proj_ms, "depth_values": depth_values}
-
-
-def _perturbed_flat(variables, seed=1):
-    """Flat-path weights with BN running statistics moved off (0, 1), so
-    the BN fold is exercised."""
-    rs = np.random.default_rng(seed)
-    flat = {}
-    for kp, v in jax.tree_util.tree_flatten_with_path(variables)[0]:
-        key = "/".join(str(getattr(k, "key", k)) for k in kp)
-        v = np.asarray(v, np.float32)
-        if key.endswith("/mean"):
-            v = v + 0.05 * rs.standard_normal(v.shape).astype(np.float32)
-        elif key.endswith("/var"):
-            v = v * (1.0 + 0.2 * rs.random(v.shape)).astype(np.float32)
-        flat[key] = v
-    return flat
-
-
-def _unflat(flat):
-    tree = {}
-    for key, v in flat.items():
-        node = tree
-        *path, leaf = key.split("/")
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = jnp.asarray(v)
-    return tree
 
 
 @pytest.fixture(scope="module")
@@ -81,9 +40,9 @@ def both():
     # jitted: an eager flax init of the cascade takes minutes on the CPU
     variables = jax.jit(jmodel.init, static_argnames=("train",))(
         jax.random.PRNGKey(0), *jargs, train=False)
-    flat = _perturbed_flat(variables)
+    flat = perturbed_flat(variables)
     want = jax.jit(jmodel.apply, static_argnames=("train",))(
-        _unflat(flat), *jargs, train=False)
+        unflat(flat), *jargs, train=False)
     want = {s: {k: np.asarray(want[s][k]) for k in
                 ("depth", "photometric_confidence", "variance", "prob_volume",
                  "depth_values")} for s in STAGES}

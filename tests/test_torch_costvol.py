@@ -1,6 +1,8 @@
 """Kernel K1 (fused adaptive cost volume): the port's plain version and its
 wrapper on CPU tensors against the JAX Pallas kernel (interpret mode) and
-the JAX XLA path, on the same numpy inputs and the same weight net.
+the JAX XLA path, on the same numpy inputs and the same weight net. The
+variance cost volume, over the plain warp and over the K4 wrapper, against
+JAX's variance mode on its Pallas sampler (interpret mode).
 
 Tolerance 5e-5, as tests/test_fused_costvol.py holds the Pallas kernel to
 the XLA path: the three implementations order the geometry and the sums
@@ -18,8 +20,10 @@ from damvsnet_tpu.nn.aggweight import fold_aggweight as jfold
 from damvsnet_tpu.ops.costvol import build_cost_volume as jbuild
 from damvsnet_tpu.ops.pallas.fused_costvol import fused_adaptive_cost_volume as jfused
 from damvsnet_tpu_torch.nn.aggweight import AggWeightNetVolume, fold_aggweight
-from damvsnet_tpu_torch.ops.costvol import build_cost_volume
+from damvsnet_tpu_torch.ops.costvol import build_cost_volume, variance_cost_volume
 from damvsnet_tpu_torch.ops.kernels import fused_costvol
+from damvsnet_tpu_torch.ops.kernels.sweep_sampler import plane_sweep_sample
+from damvsnet_tpu_torch.ops.warp import plane_sweep_warp
 from torch_helpers import fused_projs
 
 torch.set_num_threads(1)
@@ -133,3 +137,52 @@ def test_wrapper_keeps_feature_dtype(rng, wnets):
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.float().numpy(),
                                   ref.to(torch.bfloat16).float().numpy())
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("per_pixel", [False, True])
+def test_variance_matches_jax(rng, per_pixel, align_corners):
+    projs = fused_projs(B, V + 1, H, W)
+    feas = [rng.standard_normal((B, H, W, C)).astype(np.float32)
+            for _ in range(V + 1)]
+    if per_pixel:
+        dv = (4 + 4 * rng.random((B, D, H, W))).astype(np.float32)
+    else:
+        dv = np.linspace(4, 8, D, dtype=np.float32)[None]
+    want, overflow = jbuild(
+        jnp.asarray(feas[0]), [jnp.asarray(f) for f in feas[1:]],
+        jnp.asarray(projs[0]), [jnp.asarray(p) for p in projs[1:]],
+        jnp.asarray(dv), mode="variance", align_corners=align_corners,
+        sampler="pallas", sampler_opts={"interpret": True, "wb": W, "band_rows": H},
+        return_overflow=True)
+    assert int(np.asarray(overflow).sum()) == 0
+    t = [torch.from_numpy(f) for f in feas]
+    tp = [torch.from_numpy(p) for p in projs]
+    for warp in (plane_sweep_warp, plane_sweep_sample):
+        got = variance_cost_volume(t[0], t[1:], tp[0], tp[1:], torch.from_numpy(dv),
+                                   warp=warp, align_corners=align_corners)
+        assert got.shape == (B, D, H, W, C) and got.is_contiguous()
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5,
+                                   err_msg=warp.__name__)
+
+
+def test_variance_keeps_feature_dtype(rng):
+    """bf16 features give a bf16 variance volume, summed in fp32 and
+    rounded once."""
+    projs = [torch.from_numpy(p) for p in fused_projs(B, V + 1, H, W)]
+    feas = [torch.from_numpy(rng.standard_normal((B, H, W, C)).astype(np.float32))
+            .to(torch.bfloat16) for _ in range(V + 1)]
+    dv = torch.linspace(4, 8, D)[None]
+    got = variance_cost_volume(feas[0], feas[1:], projs[0], projs[1:], dv)
+    ref = variance_cost_volume(feas[0].float(), [f.float() for f in feas[1:]], projs[0],
+                               projs[1:], dv)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  ref.to(torch.bfloat16).float().numpy())
+    # the sampler's bf16 warp is summed as it is, as if cast to fp32 first
+    got = variance_cost_volume(feas[0], feas[1:], projs[0], projs[1:], dv,
+                               warp=plane_sweep_sample)
+    ref = variance_cost_volume(feas[0], feas[1:], projs[0], projs[1:], dv,
+                               warp=lambda *a: plane_sweep_sample(*a).float())
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), ref.float().numpy())

@@ -19,7 +19,10 @@ from damvsnet_tpu_torch.train.state import TrainState
 torch.set_num_threads(1)
 
 PKG = Path(damvsnet_tpu_torch.__file__).resolve().parent
+REPO = PKG.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "damvsnet_tpu")
+# what drives the port on the card: it stands alone as the package does
+SCRIPTS = (REPO / "chip_smoke.py", *sorted((REPO / "scripts").glob("*torch*.py")))
 
 
 def _modules():
@@ -30,9 +33,11 @@ def _modules():
 
 
 def test_no_forbidden_import_statement():
-    """AST scan of every module's absolute imports."""
+    """AST scan of the absolute imports of every module, of chip_smoke.py
+    and of scripts/*torch*.py (imports inside functions included)."""
+    assert len(SCRIPTS) >= 3  # chip_smoke.py and the profile and sensitivity scripts
     bad = []
-    for path, _ in _modules():
+    for path in [p for p, _ in _modules()] + list(SCRIPTS):
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):
@@ -60,15 +65,17 @@ def test_importing_every_module_loads_no_jax():
 
 def test_every_module_is_covered():
     """The scans above walk the package, so a new module is covered; the
-    training slice's modules are among them."""
+    training slice's modules and the sampler kernel's are among them."""
     mods = {m for _, m in _modules()}
     assert {"damvsnet_tpu_torch.losses.crossview", "damvsnet_tpu_torch.losses.supervised",
             "damvsnet_tpu_torch.train.loop", "damvsnet_tpu_torch.train.state",
             "damvsnet_tpu_torch.train.schedule", "damvsnet_tpu_torch.train.metrics",
-            "damvsnet_tpu_torch.data.common", "damvsnet_tpu_torch.cli.train"} <= mods
+            "damvsnet_tpu_torch.data.common", "damvsnet_tpu_torch.cli.train",
+            "damvsnet_tpu_torch.ops.kernels.sweep_sampler"} <= mods
 
 
-@pytest.mark.parametrize("entry", ["model", "runner", "train_step", "trainer", "cli"])
+@pytest.mark.parametrize("entry", ["model", "runner", "train_step", "trainer", "cli",
+                                   "variance_model"])
 def test_entry_points_raise_without_cuda(monkeypatch, entry, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -82,5 +89,7 @@ def test_entry_points_raise_without_cuda(monkeypatch, entry, tmp_path):
             model = CascadeMVSNet(ndepths=(8, 8, 8), device="cpu")
             opt = torch.optim.Adam(model.parameters())
             Trainer(TrainState(model, opt), str(tmp_path))
-        else:
+        elif entry == "cli":
             cli_train.main(["--logdir", str(tmp_path), "--epochs", "1"])
+        else:
+            CascadeMVSNet(ndepths=(8, 8, 8), agg_mode="variance")

@@ -16,7 +16,9 @@ import pytest
 import torch
 
 from damvsnet_tpu_torch.ops.kernels import fused_costvol, probstats
+from damvsnet_tpu_torch.ops.kernels.sweep_sampler import plane_sweep_sample
 from damvsnet_tpu_torch.ops.regression import prob_volume_stats
+from damvsnet_tpu_torch.ops.warp import plane_sweep_warp
 from torch_helpers import fused_projs
 
 pytestmark = pytest.mark.cuda
@@ -157,3 +159,49 @@ def test_fused_costvol_backward_rejects_bad_cotangent(dev):
     with pytest.raises(ValueError):
         fused_costvol.fused_adaptive_cost_volume_backward(cot.transpose(2, 3).contiguous()
                                                           .transpose(2, 3), *args)
+
+
+@pytest.mark.parametrize("c", [8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_pixel", [False, True])
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_sweep_sampler_matches_plain(dev, c, dtype, per_pixel, align_corners):
+    """K4 against its plain version (fp32, on the same inputs); in bf16 the
+    kernel rounds its fp32 sample once."""
+    feas, projs, dv, *_ = _inputs(dev, dtype, c, per_pixel, b=2, views=2)
+    n0 = plane_sweep_sample.launches
+    with torch.no_grad():
+        got = plane_sweep_sample(feas[1], projs[1], projs[0], dv, align_corners)
+    torch.cuda.synchronize()
+    assert plane_sweep_sample.launches == n0 + 1
+    want = plane_sweep_warp(feas[1], projs[1], projs[0], dv, align_corners)
+    assert got.dtype == dtype and got.shape == want.shape and got.is_contiguous()
+    rel = 1e-4 if dtype == torch.float32 else 2.0 ** -8
+    tol = 1e-4 + rel * want.abs()
+    assert bool(((got.float() - want).abs() <= tol).all())
+
+
+def test_sweep_sampler_batch_stride(dev):
+    """A view of a [B, N, H, W, C] stack (the cascade's source features)
+    samples exactly as the same features laid out on their own."""
+    feas, projs, dv, *_ = _inputs(dev, torch.bfloat16, 16, True, b=2, views=3)
+    stacked = torch.stack(feas, dim=1)
+    with torch.no_grad():
+        got = plane_sweep_sample(stacked[:, 2], projs[2], projs[0], dv)
+        want = plane_sweep_sample(feas[2], projs[2], projs[0], dv)
+    assert torch.equal(got, want)
+
+
+def test_sweep_sampler_rejects_bad_input(dev):
+    feas, projs, dv, *_ = _inputs(dev, torch.float32, 8, False, views=2)
+    with pytest.raises(ValueError):  # C not in (8, 16, 32)
+        plane_sweep_sample(feas[1][..., :4].contiguous(), projs[1], projs[0], dv)
+    with pytest.raises(ValueError):  # the depths on another device
+        plane_sweep_sample(feas[1], projs[1], projs[0], dv.cpu())
+    with pytest.raises(ValueError):  # the [H, W, C] plane not contiguous
+        plane_sweep_sample(feas[1].transpose(1, 2).contiguous().transpose(1, 2),
+                           projs[1], projs[0], dv)
+    with pytest.raises(ValueError):  # fp16
+        plane_sweep_sample(feas[1].half(), projs[1], projs[0], dv)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        plane_sweep_sample(feas[1].clone().requires_grad_(), projs[1], projs[0], dv)

@@ -190,9 +190,36 @@ def test_cli_trains_one_epoch_and_resumes(tiny_synthetic, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--agg_mode", "variance"], ["--use_fmt"], ["--no_geo_fusion"],
+    ["--agg_mode", "variance"], ["--use_fmt"], ["--profile_dir", "prof"],
     ["--grad_method", "undetach"], ["--share_cr"], ["--dataset", "dtu_yao"],
 ])
 def test_cli_raises_on_what_the_port_lacks(tiny_synthetic, tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    match = "ROADMAP Queue 1 item 10.1" if "variance" in flags else "ROADMAP"
+    with pytest.raises(NotImplementedError, match=match):
         cli_train.main(_CLI + ["--epochs", "1", "--logdir", str(tmp_path)] + flags)
+
+
+@pytest.mark.parametrize("flags", [["--no_geo_fusion"], ["--cr_base_chs", "4,8,4"]])
+def test_cli_trains_the_variants(monkeypatch, capsys, tmp_path, flags):
+    """The fused training step runs the cascade without geo fusion, and with
+    other U-Net widths, unchanged: one step gives a finite loss and moves
+    the parameters."""
+    monkeypatch.setitem(port_data._REGISTRY, "synthetic",
+                        functools.partial(SyntheticDataset, height=32, width=32, length=2))
+    argv = _CLI + ["--epochs", "1", "--logdir", str(tmp_path)] + flags
+    torch.manual_seed(1)  # the CLI's --seed: the same initial weights
+    start = CascadeMVSNet(ndepths=(8, 8, 8), device="cpu",
+                          use_geo_fusion="--no_geo_fusion" not in flags,
+                          cr_base_chs=(4, 8, 4) if "--cr_base_chs" in flags else (8, 8, 8))
+    trainer = cli_train.main(argv)
+    model = trainer.state.model
+    assert trainer.state.step == 1
+    assert hasattr(model, "GeoFeatureFusionNet") == ("--no_geo_fusion" not in flags)
+    start_sd = start.state_dict()
+    assert set(model.state_dict()) == set(start_sd)
+    moved = [k for k, p in model.named_parameters() if not torch.equal(p.detach(), start_sd[k])]
+    assert len(moved) > 0.9 * len(list(model.parameters()))
+    done = [line for line in capsys.readouterr().out.splitlines()
+            if line.startswith("epoch 0 done")]
+    loss = float(done[0].split(" loss=")[1].split()[0])
+    assert np.isfinite(loss)

@@ -75,3 +75,44 @@ def test_bridge_raises_on_keys_left_over(ckpt):
     del missing["params/cost_reg_stage2/prob/kernel"]
     with pytest.raises(KeyError, match="cost_reg_stage2/prob"):
         state_dict_from_flax(missing)
+
+
+def test_variance_model_drops_exactly_the_weight_nets(ckpt, tmp_path):
+    """A variance model loads bench_ckpt.npz less its agg_weight_stage*
+    keys, and says so; any other key left over still raises."""
+    model = CascadeMVSNet(device="cpu", agg_mode="variance")
+    with pytest.warns(UserWarning, match="no agg_weight_stage1, agg_weight_stage2, "
+                      "agg_weight_stage3; dropped the checkpoint's 30 keys"):
+        load_bench_weights(model, CKPT)
+    sd = model.state_dict()
+    assert not any(k.startswith("DepthNet") for k in sd)
+    n_agg = sum("/agg_weight_stage" in k for k in ckpt)
+    assert n_agg == 30
+    assert len(sd) - sum(k.endswith("num_batches_tracked") for k in sd) == len(ckpt) - n_agg
+    np.testing.assert_array_equal(
+        sd["cost_regularization.2.prob.weight"].numpy(),
+        ckpt["params/cost_reg_stage3/prob/kernel"].transpose(4, 3, 0, 1, 2))
+    extra = tmp_path / "extra.npz"
+    np.savez(extra, **ckpt, **{"params/feature/extra/kernel": np.zeros(1)})
+    with pytest.raises(ValueError, match="left over"), pytest.warns(UserWarning):
+        load_bench_weights(CascadeMVSNet(device="cpu", agg_mode="variance"), str(extra))
+
+
+@pytest.mark.parametrize("agg_mode", ["adaptive", "variance"])
+def test_model_without_geo_fusion_drops_exactly_its_keys(ckpt, agg_mode):
+    """Without geo fusion the checkpoint's geo_fusion keys are dropped too,
+    in one warning, and every other weight lands."""
+    model = CascadeMVSNet(device="cpu", agg_mode=agg_mode, use_geo_fusion=False)
+    absent = ("geo_fusion",) if agg_mode == "adaptive" else (
+        "agg_weight_stage1", "agg_weight_stage2", "agg_weight_stage3", "geo_fusion")
+    n_absent = sum(k.split("/")[1] in absent for k in ckpt)
+    with pytest.warns(UserWarning, match=f"no {', '.join(absent)}; dropped the "
+                      f"checkpoint's {n_absent} keys") as record:
+        load_bench_weights(model, CKPT)
+    assert len(record) == 1
+    sd = model.state_dict()
+    assert not any(k.startswith("GeoFeatureFusionNet") for k in sd)
+    assert len(sd) - sum(k.endswith("num_batches_tracked") for k in sd) == len(ckpt) - n_absent
+    np.testing.assert_array_equal(
+        sd["feature.out3.weight"].numpy(),
+        ckpt["params/feature/out3/kernel"].transpose(3, 2, 0, 1))
