@@ -10,6 +10,8 @@ without printing its result line:
      (one nvcc per source, started together) and print their register use;
   3. K1, the fused adaptive cost volume, against its plain PyTorch version
      at each stage's full-width serving shape, fp32 (TF32 off) and bf16;
+     timed with CUDA events around the wrapper and, device time alone
+     (kernel_ms), with torch.profiler;
   4. K2, the probability-volume statistics, likewise;
   5. the serving cascade (1152x864, N=5, ndepths 64/32/8, bf16, the
      trained weights of weights/bench_ckpt.npz) answering 3 requests
@@ -19,13 +21,16 @@ without printing its result line:
   6. K3, the backward of K1, against torch autograd of K1's plain version
      at each stage's full-width training shape (B=4, 512x640, N=5), fp32
      (TF32 off) and bf16, on the scenes' FeatureNet maps, the trained
-     weight net and a seeded cotangent; K1 is timed at the same shapes;
+     weight net and a seeded cotangent; K1 is timed at the same shapes
+     (both also device time alone);
   7. the training step (512x640, B=4, N=5, D0=192, ndepths 64/32/8, bf16,
      the trained weights, Adam under the warmup schedule, CPC on): 1 warm
      step, then 3 timed steps through make_train_step with every launch
      counter set to 0 just before and read just after (K1 and K3 3 times a
-     step, K2 never); then one batch's loss and gradients on the kernels
-     against the plain versions, in fp32 with TF32 off;
+     step, K2 never); one more step under torch.profiler, for K1's and K3's
+     device time per stage at the hypotheses the step itself makes (ADIA's
+     at stages 2 and 3); then one batch's loss and gradients on the
+     kernels against the plain versions, in fp32 with TF32 off;
   8. K4, the plane-sweep sampler, against its plain version at each
      stage's full-width serving shape for every source view, fp32 (TF32
      off) and bf16, on the scene's FeatureNet maps and sweeps; timed beside
@@ -104,6 +109,12 @@ K3_WNET_TOL = 1e-3
 # instead.
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_L2 = 1e-2
+# name keys of the kernels in profiler traces; the template argument after
+# the dtype is C, which names the stage (C = 32 / 16 / 8 at stages 1 / 2 / 3)
+K1_KERNEL, K2_KERNEL, K3_KERNEL, K4_KERNEL = (
+    "fused_costvol_kernel", "probstats_kernel", "fused_costvol_bwd_kernel",
+    "sweep_sampler_kernel")
+STAGE_OF_C = {32: 1, 16: 2, 8: 3}
 
 
 def check(cond, msg):
@@ -140,14 +151,37 @@ def device_ms(fn, key, iters=5):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and key in e.name)
-    check(us > 0, f"the profiler saw no device kernel named like {key!r}")
-    return us / 1e3 / iters
+    for _ in range(3):  # a trace can come back without its device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and key in e.name)
+        if us > 0:
+            return us / 1e3 / iters
+    raise RuntimeError(f"check failed: three traces saw no device kernel named like {key!r}")
+
+
+def kernel_channels(name):
+    """C, the kernel's channel template argument, from a demangled
+    (``kernel<__nv_bfloat16, 32>``) or mangled (``...Li32EE``) name."""
+    import re
+    m = re.search(r"_kernel<[^,<>]+,\s*(\d+)>", name) or re.search(r"_kernelI.*?Li(\d+)E", name)
+    check(m is not None, f"no channel count in the kernel name {name!r}")
+    return int(m.group(1))
+
+
+def device_ms_by_stage(prof, key):
+    """{stage: device ms} of the kernels whose names hold ``key`` in a
+    profile, the stage read from the kernel's channel count."""
+    from torch.autograd import DeviceType
+    ms = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and key in e.name:
+            stage = STAGE_OF_C[kernel_channels(e.name)]
+            ms[stage] = ms.get(stage, 0.0) + e.time_range.elapsed_us() / 1e3
+    return ms
 
 
 def p999(x):
@@ -232,7 +266,8 @@ def phase_k1(sample, model, dev):
                    "max_abs": float(diff.max()), "p999_abs": p999(diff),
                    "max_rel": rel, "tol_rel": K1_TOL[tag],
                    "ms": cuda_ms(lambda: K.fused_adaptive_cost_volume(*args), 20),
-                   "plain_ms": cuda_ms(lambda: K.fused_adaptive_cost_volume_plain(*args), 3, 1)}
+                   "plain_ms": cuda_ms(lambda: K.fused_adaptive_cost_volume_plain(*args), 3, 1),
+                   "kernel_ms": device_ms(lambda: K.fused_adaptive_cost_volume(*args), K1_KERNEL)}
             b, d, h, w, c = got.shape
             row["bound_ms"], row["bound_by"] = k1_bound_ms(
                 b, d, h, w, c, NVIEWS - 1, got.element_size(), dv.dim() == 4)
@@ -273,6 +308,7 @@ def phase_k2(sample, dev):
             row["max_abs"] = max(row[f"max_abs_{k}"] for k in K2_TOL)
             row["ms"] = cuda_ms(lambda: prob_volume_stats_fused(cost, dv), 50)
             row["plain_ms"] = cuda_ms(lambda: prob_volume_stats(cost, dv), 10, 1)
+            row["kernel_ms"] = device_ms(lambda: prob_volume_stats_fused(cost, dv), K2_KERNEL)
             row["bound_ms"], row["bound_by"] = k2_bound_ms(1, d, h, w, dv.dim() == 4)
             print("K2", json.dumps(row), flush=True)
             check(flips <= max(2, K2_MAX_FLIP_SHARE * h * w),
@@ -477,6 +513,9 @@ def phase_k3(model, dev):
             row["max_abs"] = max(v for k, v in row.items() if k.startswith("max_abs_"))
             row["ms"] = cuda_ms(lambda: K.fused_adaptive_cost_volume_backward(cot, *args), 5)
             row["k1_ms"] = cuda_ms(lambda: K.fused_adaptive_cost_volume(*args), 5)
+            row["kernel_ms"] = device_ms(
+                lambda: K.fused_adaptive_cost_volume_backward(cot, *args), K3_KERNEL, 3)
+            row["k1_kernel_ms"] = device_ms(lambda: K.fused_adaptive_cost_volume(*args), K1_KERNEL, 3)
             row["plain_ms"] = cuda_ms(
                 lambda: K.fused_adaptive_cost_volume_backward_plain(cot, *args), 1, 1)
             row["bound_ms"], row["bound_by"] = k3_bound_ms(
@@ -556,6 +595,18 @@ def phase_train(dev):
     check_launches("training", launches, {"fused_adaptive_cost_volume": 3,
                                           "fused_adaptive_cost_volume_backward": 3},
                    TRAIN_STEPS)
+
+    # one more step, profiled: K1's and K3's device time per stage on the
+    # hypotheses the step makes (stage 1 the uniform sweep, then ADIA's)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batches[1])
+        torch.cuda.synchronize()
+    step_kernels = {"k1_kernel_ms": device_ms_by_stage(prof, K1_KERNEL),
+                    "k3_kernel_ms": device_ms_by_stage(prof, K3_KERNEL)}
+    print("train step kernels", json.dumps(step_kernels), flush=True)
+    for key, by_stage in step_kernels.items():
+        check(sorted(by_stage) == [1, 2, 3], f"profiled step: {key} saw stages {sorted(by_stage)}")
 
     # one batch, the same weights: kernels against plain versions, fp32
     del state, optimizer, scheduler, step
@@ -653,7 +704,7 @@ def phase_k4(sample, model, dev):
             row["library_ms"] = cuda_ms(library, 10)
             row["kernel_ms"] = device_ms(lambda: [plane_sweep_sample(x, p, ref_p, dv)
                                                   for x, p in zip(srcs, src_p)],
-                                         "sweep_sampler_kernel")
+                                         K4_KERNEL)
             row["library_kernel_ms"] = device_ms(library, "grid_sampler")
             bound, row["bound_by"] = k4_bound_ms(b, dv.shape[1], h, w, c,
                                                  srcs[0].element_size(), dv.dim() == 4)
@@ -775,6 +826,7 @@ def main():
                 "max_abs_err": max(r["max_abs"] for r in main_rows),
                 "ms": sum(r["ms"] for r in main_rows),
                 "plain_ms": sum(r["plain_ms"] for r in main_rows),
+                "kernel_ms": sum(r["kernel_ms"] for r in main_rows),
                 "bound_ms": sum(r["bound_ms"] for r in main_rows),
                 "bound_by": max(main_rows, key=lambda r: r["bound_ms"])["bound_by"],
                 "library_ms": None if None in library else sum(library)}

@@ -23,6 +23,13 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     return dev
 
 
+def check_plane(name: str, h: int, w: int, c: int) -> None:
+    """The kernels index inside one [H, W, C] plane with 32-bit offsets."""
+    if h * w * c >= 2 ** 31:
+        raise ValueError(f"{name}: an [H, W, C] = {(h, w, c)} plane holds 2^31 or "
+                         "more elements; the kernels index a plane with 32 bits")
+
+
 def check_launch(name: str, err: int) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err != 0:

@@ -16,32 +16,47 @@
 // exist only because the TPU has no fast gather; here every tap is gathered
 // directly, so nothing can overflow and there is no overflow flag.
 //
-// Design: one thread per output voxel. The thread loads the reference
-// C-vector once, keeps d2[C] and acc[C] in fp32 registers (C <= 32), loops
-// over the source views, gathers each tap as one contiguous C-vector from
-// channels-last source features with 16-byte loads, and writes one
-// contiguous C-vector in the feature dtype. Accumulation is fp32 whatever
-// the feature dtype.
-//
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 outside the tensor
 // cores): the output is the dominant byte stream (stage 1 at 1152x864:
-// 64*216*288*32 bf16 = 255 MB plus 20 MB of features, 0.082 ms); the
-// gathered source rows of neighbouring threads overlap and stay in L1/L2.
-// The fp32 arithmetic is about (14*C + 60) operations per voxel and view,
-// 8.2 GFLOP at stage 1 (0.123 ms), so in bf16 the kernel is bound by
-// operations at every stage, in fp32 by bytes. chip_smoke.py computes both
-// bounds from each run's shapes; on an H100 80GB HBM3 at 700 W it measured
-// 1.06 / 1.29 / 0.86 ms for stages 1/2/3 in bf16 against bounds of
-// 0.123 / 0.137 / 0.083 ms: the thread per voxel re-gathers the same taps
-// for every hypothesis, which a later version can share.
+// 64*216*288*32 bf16 = 255 MB plus 20 MB of features, 0.082 ms); the fp32
+// arithmetic is about (14*C + 60) operations per voxel and view, 8.2 GFLOP
+// at stage 1 (0.123 ms), so in bf16 the kernel is bound by operations at
+// every stage, in fp32 by bytes. chip_smoke.py computes both bounds from
+// each run's shapes.
+//
+// What held the first version back (one thread per voxel, 1.06 / 1.29 /
+// 0.86 ms per serving stage in bf16 on an H100 80GB HBM3 at 700 W against
+// bounds of 0.123 / 0.137 / 0.083): a thread gathered each tap as C*elem/16
+// separate 16-byte loads 64 bytes apart from its neighbours' (a quarter of
+// each L1 wavefront used), stored its C-vector the same way, and redid per
+// voxel what belongs to its pixel: the reference C-vector, the 12 geometry
+// floats and rot * [x, y, 1] of every view, and 64-bit tap offsets.
+//
+// Design: the C-vector of a voxel is split across L = C / kPiece lanes, one
+// 16-byte piece each (8 bf16 or 4 fp32 channels), so a warp's gathers and
+// stores cover neighbouring voxels' contiguous C-vectors; <w1, d2> is
+// reduced over the L lanes with xor shuffles (every lane gets the same
+// sum, so the lanes agree on the weight). A block holds kThreads / L
+// pixels of one batch element; a lane group owns one pixel and a run of
+// kRun hypotheses. The block computes each pixel's ray rot * [x, y, 1] per
+// view once, into shared memory, beside the views' translations; the
+// reference piece and the w1 piece stay in registers over the run. Offsets
+// inside a plane are 32-bit (the wrapper checks H * W * C < 2^31); the next
+// hypothesis' depth is loaded a step ahead. Accumulation is fp32 whatever
+// the feature dtype, rounded once. Measured on that card
+// (scripts/ab_kernels_torch.py, device time alone, bf16): 0.59 / 0.65 /
+// 0.61 ms per serving stage against the first version's 0.83 / 1.13 /
+// 0.66; still 4.8 / 4.8 / 7.4x its bound, stage 3 (C = 8, one lane a
+// pixel, D = 8) gaining least.
 #include "sampling.cuh"
 
 namespace {
 
-using sweep::load8;
-using sweep::store8;
+using sweep::kPiece;
 
 constexpr int kMaxViews = 16;
+constexpr int kThreads = 128;
+constexpr int kRun = 8;  // hypotheses per lane group
 
 struct SrcPtrs {
   const void* p[kMaxViews];
@@ -49,7 +64,7 @@ struct SrcPtrs {
 
 // params: w1[C], then b1, w2, b2, 1/(N-1)
 template <typename T, int C>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kThreads)
 fused_costvol_kernel(const T* __restrict__ ref, long long ref_bstride,
                      SrcPtrs src, long long src_bstride, int V,
                      const float* __restrict__ geom,    // [V, B, 12]
@@ -59,53 +74,98 @@ fused_costvol_kernel(const T* __restrict__ ref, long long ref_bstride,
                      T* __restrict__ out,               // [B, D, H, W, C]
                      int B, int D, int H, int W,
                      float sx, float ox, float sy, float oy) {
-  const long long n = (long long)B * D * H * W;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int x = (int)(i % W);
-  const int y = (int)((i / W) % H);
-  const int d = (int)((i / ((long long)W * H)) % D);
-  const int b = (int)(i / ((long long)W * H * D));
+  constexpr int K = kPiece<T>;
+  constexpr int L = C / K;          // lanes per pixel
+  constexpr int P = kThreads / L;   // pixels per block
+  __shared__ float ray[kMaxViews][3][P];
+  __shared__ float trans[kMaxViews][3];
+  __shared__ const T* srcs[kMaxViews];
 
-  const float depth = dv_per_pixel ? dv[i] : dv[(long long)b * D + d];
-  const long long pix = (long long)y * W + x;
+  const int b = blockIdx.y;
+  const int HW = H * W;
+  const int lp = threadIdx.x / L, piece = threadIdx.x % L, c0 = piece * K;
+  const int pix = blockIdx.x * P + lp;
+  const bool live = pix < HW;
+  const int y = live ? pix / W : 0, x = live ? pix - y * W : 0;
 
-  float refv[C];
+  // per pixel and view, once: the lanes of a pixel split the views
+  for (int v = piece; v < V; v += L) {
+    float r[3];
+    sweep::project_ray(geom + ((long long)v * B + b) * 12, (float)x, (float)y, r);
+    ray[v][0][lp] = r[0];
+    ray[v][1][lp] = r[1];
+    ray[v][2][lp] = r[2];
+  }
+  // constant indices: a dynamic index into the parameter struct would copy
+  // it to the stack
 #pragma unroll
-  for (int k = 0; k < C; k += 8) load8(ref + b * ref_bstride + pix * C + k, refv + k);
+  for (int v = 0; v < kMaxViews; ++v)
+    if (threadIdx.x == v && v < V) srcs[v] = reinterpret_cast<const T*>(src.p[v]) + b * src_bstride;
+  if (threadIdx.x < 3 * V)
+    trans[threadIdx.x / 3][threadIdx.x % 3] =
+        geom[((long long)(threadIdx.x / 3) * B + b) * 12 + 9 + threadIdx.x % 3];
+  __syncthreads();
 
+  float refv[K], w1[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    refv[j] = 0.f;
+    w1[j] = params[c0 + j];
+  }
+  if (live) sweep::load_n<K>(ref + b * ref_bstride + pix * C + c0, refv);
   const float b1 = params[C], w2 = params[C + 1], b2 = params[C + 2];
   const float inv_nm1 = params[C + 3];
-  const float xf = (float)x, yf = (float)y;
 
-  float acc[C];
+  // the next hypothesis' depth is loaded a step ahead
+  auto depth_at = [&](int d) {
+    const long long bd = (long long)b * D + d;
+    return dv_per_pixel ? (live ? dv[bd * HW + pix] : 1.f) : dv[bd];
+  };
+  const int d_begin = blockIdx.z * kRun, d_end = min(D, d_begin + kRun);
+  float next = depth_at(d_begin);
+  for (int d = d_begin; d < d_end; ++d) {
+    const long long bd = (long long)b * D + d;
+    const float depth = next;
+    if (d + 1 < d_end) next = depth_at(d + 1);
+    float acc[K];
 #pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.f;
+    for (int j = 0; j < K; ++j) acc[j] = 0.f;
 
-  for (int v = 0; v < V; ++v) {
-    float px, py;
-    sweep::project(geom + ((long long)v * B + b) * 12, xf, yf, depth, sx, ox, sy, oy, px, py);
-    float warp[C];
-    sweep::bilinear_zeros<T, C>(reinterpret_cast<const T*>(src.p[v]) + b * src_bstride,
-                                px, py, H, W, warp);
-
-    float s = 0.f;
+    for (int v = 0; v < V; ++v) {
+      const float r[3] = {ray[v][0][lp], ray[v][1][lp], ray[v][2][lp]};
+      float px, py;
+      sweep::project_depth(r, trans[v], depth, sx, ox, sy, oy, px, py);
+      const sweep::Taps t = sweep::bilinear_taps(px, py, H, W);
+      const T* base = srcs[v] + c0;
+      float d2[K];  // the warp, then d2
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const float df = refv[c] - warp[c];
-      warp[c] = df * df;  // warp now holds d2
-      s = fmaf(warp[c], params[c], s);
+      for (int j = 0; j < K; ++j) d2[j] = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (!live || !(t.ok & (1u << k))) continue;
+        float s8[K];
+        sweep::load_n<K>(base + sweep::tap_pixel(t, k, W) * C, s8);
+#pragma unroll
+        for (int j = 0; j < K; ++j) d2[j] = fmaf(t.wt[k], s8[j], d2[j]);
+      }
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const float df = refv[j] - d2[j];
+        d2[j] = df * df;
+        s = fmaf(d2[j], w1[j], s);
+      }
+#pragma unroll
+      for (int o = 1; o < L; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      const float wgt = fmaxf(w2 * fmaxf(s + b1, 0.f) + b2, 0.f) + 1.f;
+#pragma unroll
+      for (int j = 0; j < K; ++j) acc[j] = fmaf(wgt, d2[j], acc[j]);
     }
-    const float wgt = fmaxf(w2 * fmaxf(s + b1, 0.f) + b2, 0.f) + 1.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = fmaf(wgt, warp[c], acc[c]);
-  }
 
 #pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] *= inv_nm1;
-  T* o = out + i * C;
-#pragma unroll
-  for (int k = 0; k < C; k += 8) store8(o + k, acc + k);
+    for (int j = 0; j < K; ++j) acc[j] *= inv_nm1;
+    if (live) sweep::store_piece(out + (bd * HW + pix) * C + c0, acc);
+  }
 }
 
 template <typename T, int C>
@@ -114,10 +174,9 @@ cudaError_t launch(const void* ref, long long ref_bstride, const SrcPtrs& src,
                    int dv_per_pixel, const float* params, void* out, int B, int D,
                    int H, int W, float sx, float ox, float sy, float oy,
                    cudaStream_t stream) {
-  const long long n = (long long)B * D * H * W;
-  const int threads = 128;
-  const long long blocks = (n + threads - 1) / threads;
-  fused_costvol_kernel<T, C><<<(unsigned)blocks, threads, 0, stream>>>(
+  constexpr int P = kThreads / (C / kPiece<T>);
+  const dim3 grid((unsigned)((H * W + P - 1) / P), (unsigned)B, (unsigned)((D + kRun - 1) / kRun));
+  fused_costvol_kernel<T, C><<<grid, kThreads, 0, stream>>>(
       reinterpret_cast<const T*>(ref), ref_bstride, src, src_bstride, V, geom, dv,
       dv_per_pixel, params, reinterpret_cast<T*>(out), B, D, H, W, sx, ox, sy, oy);
   return cudaGetLastError();

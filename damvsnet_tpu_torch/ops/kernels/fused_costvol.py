@@ -28,9 +28,9 @@ from typing import Sequence
 import torch
 
 from ..costvol import build_cost_volume
-from ..warp import geom_from_projs, pixel_affine
+from ..warp import geoms_from_projs, pixel_affine
 from ._common import (DTYPE_CODES, SUPPORTED_CHANNELS, check_cuda, check_launch,
-                      depth_argument)
+                      check_plane, depth_argument)
 from .build import load
 
 MAX_VIEWS = 16  # kMaxViews in the CUDA sources
@@ -94,7 +94,7 @@ class _Launch:
 
 def _prepare(name, ref_fea, src_feas, ref_proj, src_projs, depth_values) -> _Launch:
     """Check the inputs (raise on what the kernels do not take) and build
-    the per-view geometry."""
+    every view's geometry at once, without a sync."""
     dev = check_cuda(name, ref_fea, *src_feas, ref_proj, *src_projs, depth_values)
     if ref_fea.dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: feature dtype {ref_fea.dtype} is not float32 "
@@ -103,6 +103,7 @@ def _prepare(name, ref_fea, src_feas, ref_proj, src_projs, depth_values) -> _Lau
     v = len(src_feas)
     if c not in SUPPORTED_CHANNELS:
         raise ValueError(f"{name}: C={c} not in {SUPPORTED_CHANNELS}")
+    check_plane(name, h, w, c)
     if not 1 <= v <= MAX_VIEWS:
         raise ValueError(f"{name}: {v} source views, supported 1..{MAX_VIEWS}")
     if len(src_projs) != v:
@@ -125,7 +126,7 @@ def _prepare(name, ref_fea, src_feas, ref_proj, src_projs, depth_values) -> _Lau
     d = depth_values.shape[1]
     dv, per_pixel = depth_argument(depth_values.detach(), b, d, h, w)
     with torch.no_grad():
-        geom = torch.stack([geom_from_projs(sp, ref_proj) for sp in src_projs]).contiguous()
+        geom = geoms_from_projs(src_projs, ref_proj).contiguous()
     return _Launch(name, dev, b, d, h, w, c, v,
                    ref_fea.stride(0) if b > 1 else 0, src_bstride, geom, dv,
                    per_pixel, (*pixel_affine(w), *pixel_affine(h)))
@@ -154,7 +155,7 @@ def _bind_backward(lib):
     fn = lib.fused_costvol_bwd_launch
     vp, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     fn.argtypes = [vp, ll, ctypes.POINTER(vp), ll, i, vp, vp, i, vp, vp, vp, vp,
-                   vp, i, i, i, i, i, i, f, f, f, f, vp]
+                   vp, vp, i, i, i, i, i, i, f, f, f, f, vp]
     fn.restype = i
     return fn
 
@@ -174,8 +175,11 @@ def _launch_forward(L: _Launch, params, ref_fea, src_feas) -> torch.Tensor:
     return out
 
 
-def _launch_backward(L: _Launch, params, ref_fea, src_feas, grad_out):
-    """K3: (dref [B,H,W,C], [dsrc_v], dw [C+3] = dw1, db1, dw2, db2)."""
+def _launch_backward(L: _Launch, params, ref_fea, src_feas, grad_out, atomics=None):
+    """K3: (dref [B,H,W,C], [dsrc_v], dw [C+3] = dw1, db1, dw2, db2).
+    ``atomics``, a one-element int64 CUDA tensor or None: the launch adds
+    its count of 16-byte source-gradient atomics to it (a measurement;
+    the main path passes None)."""
     if (grad_out.device != L.dev or grad_out.dtype != ref_fea.dtype
             or tuple(grad_out.shape) != (L.b, L.d, L.h, L.w, L.c)):
         raise ValueError(f"{L.name}: the cotangent {tuple(grad_out.shape)} "
@@ -195,7 +199,8 @@ def _launch_backward(L: _Launch, params, ref_fea, src_feas, grad_out):
              (ctypes.c_void_p * L.v)(*[s.data_ptr() for s in src_feas]),
              L.src_bstride, L.v, L.geom.data_ptr(), L.dv.data_ptr(), L.per_pixel,
              params.data_ptr(), grad_out.data_ptr(), dref.data_ptr(),
-             dsrc.data_ptr(), dw.data_ptr(), L.b, L.d, L.h, L.w, L.c,
+             dsrc.data_ptr(), dw.data_ptr(),
+             None if atomics is None else atomics.data_ptr(), L.b, L.d, L.h, L.w, L.c,
              DTYPE_CODES[ref_fea.dtype], *L.affine, stream)
     check_launch(L.name, err)
     dt = ref_fea.dtype

@@ -21,7 +21,7 @@ import torch
 
 from ..warp import geom_from_projs, pixel_affine, plane_sweep_warp
 from ._common import (DTYPE_CODES, SUPPORTED_CHANNELS, check_cuda, check_launch,
-                      depth_argument)
+                      check_plane, depth_argument)
 from .build import load
 
 
@@ -56,6 +56,7 @@ def plane_sweep_sample(src_fea: torch.Tensor, src_proj: torch.Tensor,
     b, h, w, c = src_fea.shape
     if c not in SUPPORTED_CHANNELS:
         raise ValueError(f"{name}: C={c} not in {SUPPORTED_CHANNELS}")
+    check_plane(name, h, w, c)
     if tuple(src_fea.stride()[1:]) != (w * c, c, 1):
         raise ValueError(f"{name}: the source [H, W, C] plane must be contiguous")
     if src_fea.data_ptr() % 16:

@@ -38,11 +38,19 @@ def relative_projection(src_proj: torch.Tensor, ref_proj: torch.Tensor) -> torch
     return matmul_fp32(src_proj, torch.linalg.inv_ex(ref_proj.float()).inverse)
 
 
+def geoms_from_projs(src_projs, ref_proj: torch.Tensor) -> torch.Tensor:
+    """[V, B, 12] fused-homography rows (rot row-major, then trans), fp32,
+    of V source projections [B, 4, 4] — the per-view geometry the
+    plane-sweep kernels read — with one inverse of the reference projection
+    and one fp32 product over the stacked views."""
+    inv = torch.linalg.inv_ex(ref_proj.float()).inverse
+    proj = matmul_fp32(torch.stack(list(src_projs)), inv)  # [V, B, 4, 4]
+    return torch.cat([proj[..., :3, :3].flatten(-2), proj[..., :3, 3]], dim=-1)
+
+
 def geom_from_projs(src_proj: torch.Tensor, ref_proj: torch.Tensor) -> torch.Tensor:
-    """[B, 12] fused-homography rows (rot row-major, then trans), fp32 —
-    the per-view geometry the fused cost-volume kernel reads."""
-    proj = relative_projection(src_proj, ref_proj)
-    return torch.cat([proj[:, :3, :3].reshape(-1, 9), proj[:, :3, 3]], dim=1)
+    """[B, 12] ``geoms_from_projs`` of one source view."""
+    return geoms_from_projs([src_proj], ref_proj)[0]
 
 
 def pixel_affine(size: int, align_corners: bool = False):

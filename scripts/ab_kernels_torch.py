@@ -1,10 +1,11 @@
-"""Compare the port's CUDA kernels between this checkout and another one on
-one card.
+"""Compare the port's cost-volume kernels between this checkout and another
+one on one card.
 
     python3 scripts/ab_kernels_torch.py OTHER_TREE [--out DIR]
 
-OTHER_TREE is another checkout of the repository (e.g. the parent commit
-unpacked with ``git archive``). Two checks:
+OTHER_TREE is another checkout of the repository, or of its
+``damvsnet_tpu_torch`` package alone (e.g. the parent commit unpacked with
+``git archive``). Two checks:
 
   * code: K1 (csrc/fused_costvol.cu) and K3 (csrc/fused_costvol_bwd.cu)
     are built in both trees as damvsnet_tpu_torch.ops.kernels.build does,
@@ -12,11 +13,24 @@ unpacked with ``git archive``). Two checks:
     lines that name the build's input file (``identifier = ...``) are
     dropped; each diff goes to DIR/<kernel>.sass.diff and its count of
     changed lines is printed;
-  * time: K1 at the three serving shapes (1152x864, N=5, bf16, ndepths
-    64/32/8, random features seen by a rig of five cameras on a baseline),
-    one process per tree in the order other, this, this, other: the
-    wrapper's time by CUDA events and the kernel's device time alone by
-    torch.profiler.
+  * time, one process per tree in the order other, this, this, other:
+      - K1 at the three serving shapes (1152x864, N=5, bf16, ndepths
+        64/32/8, random features seen by a rig of five cameras on a
+        baseline);
+      - K3 and K1 at the three training shapes (512x640, B=4, N=5, bf16,
+        the synthetic scenes' cameras, smooth random features, a seeded
+        cotangent) with two sets of hypotheses: "wide", those of
+        chip_smoke.py phase 6 (stage 1 the uniform [B, D] sweep, stages 2-3
+        sorted random over the whole range), and "narrow", like ADIA's at
+        stages 2-3 (stage 1 the same sweep; then D hypotheses evenly over a
+        band of +-4 (stage 2) or +-2 (stage 3) stage-1 intervals around
+        the scene's smooth depth map, plus a seeded smooth offset);
+    each the wrapper's time by CUDA events and the kernel's device time
+    alone by torch.profiler, the kernels found by name keys that both
+    trees' kernels carry. Beside each K3 row: its 16-byte source-gradient
+    atomics, reckoned for one atomic per in-image tap and 4 channels (the
+    first design's scatter, counted on the plain grid), and, where the
+    tree's K3 counts them, as counted by the kernel.
 
 Prints one JSON line per result and the card's name and power limit.
 """
@@ -24,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import difflib
+import inspect
 import json
 import os
 import subprocess
@@ -32,7 +47,10 @@ from pathlib import Path
 
 THIS_TREE = Path(__file__).resolve().parent.parent
 KERNELS = ("fused_costvol", "fused_costvol_bwd")
+K1_KEY, K3_KEY = "fused_costvol_kernel", "fused_costvol_bwd_kernel"
 STAGES = ((216, 288, 32, 64), (432, 576, 16, 32), (864, 1152, 8, 8))  # h, w, C, D
+TRAIN_STAGES = ((128, 160, 32, 64), (256, 320, 16, 32), (512, 640, 8, 8))
+TRAIN_B, D0, NARROW_HALF_BAND = 4, 192, (None, 4, 2)  # in stage-1 intervals
 NVIEWS = 5
 
 
@@ -73,14 +91,41 @@ def fused_projs(h, w, dev):
     return projs
 
 
-def time_k1():
-    """(In a tree's process.) K1's wrapper and device time per stage."""
+def timed(fn, key, iters=20):
+    """(wrapper ms by CUDA events, device ms of the kernels named like
+    ``key``) per call, after warm-up."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and key in e.name)
+    return start.elapsed_time(end) / iters, us / 1e3 / iters
+
+
+def smooth(b, h, w, c, gen, dev):
+    """A smooth random [B, H, W, C] field (features are smooth at the scale
+    of a tap)."""
+    import torch
+    lo = torch.randn(b, c, max(h // 8, 2), max(w // 8, 2), generator=gen, device=dev)
+    return torch.nn.functional.interpolate(lo, size=(h, w), mode="bilinear").permute(0, 2, 3, 1)
+
+
+def time_serving_k1(dev):
+    import torch
     from damvsnet_tpu_torch.nn.aggweight import AggWeightNetVolume, fold_aggweight
     from damvsnet_tpu_torch.ops.kernels import fused_costvol as K
-    dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.manual_seed(0)
     for stage, (h, w, c, d) in enumerate(STAGES, 1):
@@ -93,25 +138,105 @@ def time_k1():
             dv = (4 + 4 * torch.rand(1, d, h, w, generator=gen, device=dev)).sort(dim=1).values
         wts = fold_aggweight(AggWeightNetVolume(c).to(dev).eval())
         with torch.inference_mode():
-            def call():
-                return K.fused_adaptive_cost_volume(feas[0], feas[1:], projs[0], projs[1:],
-                                                    dv, *wts)
-            for _ in range(3):
-                call()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(20):
-                call()
-            end.record()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(20):
-                    call()
-                torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and "fused_costvol_kernel" in e.name)
-        print(json.dumps({"stage": stage, "shape": [1, d, h, w, c],
-                          "ms": start.elapsed_time(end) / 20, "kernel_ms": us / 1e3 / 20}))
+            ms, kernel_ms = timed(lambda: K.fused_adaptive_cost_volume(
+                feas[0], feas[1:], projs[0], projs[1:], dv, *wts), K1_KEY)
+        print(json.dumps({"kernel": "K1", "path": "serving", "stage": stage,
+                          "shape": [1, d, h, w, c], "ms": ms, "kernel_ms": kernel_ms}))
+
+
+def reckoned_atomics(projs, dv, h, w, c):
+    """16-byte atomics of a scatter of every in-image tap, 4 channels each."""
+    import torch
+    from damvsnet_tpu_torch.ops.warp import plane_sweep_grid
+    taps = 0
+    for p in projs[1:]:
+        px, py = plane_sweep_grid(p, projs[0], dv, h, w)
+        x0, y0 = px.floor(), py.floor()
+        for ox in (0, 1):
+            for oy in (0, 1):
+                x, y = x0 + ox, y0 + oy
+                taps += int(((x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)).sum())
+        del px, py, x0, y0
+    torch.cuda.empty_cache()
+    return taps * (c // 4)
+
+
+def training_hypotheses(kind, stage, batch, lo, hi, gen, dev):
+    import torch
+    h, w, _, d = TRAIN_STAGES[stage - 1]
+    b = lo.shape[0]
+    if stage == 1:
+        t = torch.linspace(0, 1, d, device=dev)[None]
+        return lo[:, None] + (hi - lo)[:, None] * t
+    if kind == "wide":
+        u = torch.rand(b, d, h, w, generator=gen, device=dev).sort(dim=1).values
+        return lo[:, None, None, None] + (hi - lo)[:, None, None, None] * u
+    interval = (hi - lo) / (TRAIN_STAGES[0][3] - 1)
+    depth = torch.as_tensor(batch["depth"][f"stage{stage}"], device=dev)  # [B, h, w]
+    depth = torch.where(depth > 0, depth, (lo + hi)[:, None, None] / 2)
+    offset = smooth(b, h, w, 1, gen, dev)[..., 0] * interval[:, None, None]
+    half = NARROW_HALF_BAND[stage - 1] * interval
+    t = torch.linspace(-1, 1, d, device=dev)[None, :, None, None]
+    return (depth + offset)[:, None] + half[:, None, None, None] * t
+
+
+def time_training(dev):
+    import numpy as np
+    import torch
+    from damvsnet_tpu_torch.data.common import collate
+    from damvsnet_tpu_torch.data.synthetic import make_synthetic_sample
+    from damvsnet_tpu_torch.model.cascade import fuse_projection_matrices
+    from damvsnet_tpu_torch.nn.aggweight import AggWeightNetVolume, fold_aggweight
+    from damvsnet_tpu_torch.ops.kernels import fused_costvol as K
+    counts = "atomics" in inspect.signature(K._launch_backward).parameters
+    h1, w1 = TRAIN_STAGES[-1][:2]
+    batch = collate([make_synthetic_sample(height=h1, width=w1, nviews=NVIEWS, ndepths=D0,
+                                           seed=k) for k in range(TRAIN_B)])
+    lo = torch.as_tensor(np.ascontiguousarray(batch["depth_values"][:, 0]), device=dev)
+    hi = torch.as_tensor(np.ascontiguousarray(batch["depth_values"][:, -1]), device=dev)
+    torch.manual_seed(0)
+    for stage, (h, w, c, d) in enumerate(TRAIN_STAGES, 1):
+        gen = torch.Generator(device=dev).manual_seed(stage)
+        fused = fuse_projection_matrices(
+            torch.as_tensor(batch["proj_matrices"][f"stage{stage}"], device=dev))
+        projs = [fused[:, v] for v in range(NVIEWS)]
+        feas = [smooth(TRAIN_B, h, w, c, gen, dev).bfloat16().contiguous()
+                for _ in range(NVIEWS)]
+        wts = fold_aggweight(AggWeightNetVolume(c).to(dev).eval())
+        cot = torch.randn(TRAIN_B, d, h, w, c, generator=gen, device=dev).bfloat16()
+        for kind in ("wide", "narrow"):
+            if stage == 1 and kind == "narrow":
+                continue  # stage 1 is the same uniform sweep in both sets
+            dv = training_hypotheses(kind, stage, batch, lo, hi, gen, dev)
+            args = (feas[0], feas[1:], projs[0], projs[1:], dv, *wts)
+            with torch.no_grad():
+                k3_ms, k3_kernel_ms = timed(
+                    lambda: K.fused_adaptive_cost_volume_backward(cot, *args), K3_KEY, 10)
+                k1_ms, k1_kernel_ms = timed(lambda: K.fused_adaptive_cost_volume(*args), K1_KEY, 10)
+                row = {"kernel": "K3+K1", "path": "training", "hypotheses": kind,
+                       "stage": stage, "shape": [TRAIN_B, d, h, w, c], "k3_ms": k3_ms,
+                       "k3_kernel_ms": k3_kernel_ms, "k1_ms": k1_ms,
+                       "k1_kernel_ms": k1_kernel_ms,
+                       "atomics_reckoned_per_tap": reckoned_atomics(projs, dv, h, w, c)}
+                if counts:
+                    L = K._prepare("ab", feas[0], feas[1:], projs[0], projs[1:], dv)
+                    counter = torch.zeros(1, dtype=torch.int64, device=dev)
+                    K._launch_backward(L, K._params(*wts, L), feas[0], feas[1:], cot,
+                                       atomics=counter)
+                    row["atomics_counted"] = int(counter)
+            print(json.dumps(row), flush=True)
+            del dv, args
+        del feas, cot
+        torch.cuda.empty_cache()
+
+
+def time_kernels():
+    """(In a tree's process.) K1 at the serving shapes, K3 and K1 at the
+    training shapes."""
+    import torch
+    dev = torch.device("cuda")
+    time_serving_k1(dev)
+    time_training(dev)
 
 
 def main():
@@ -124,7 +249,7 @@ def main():
     if args.build:
         return build_libraries()
     if args.time:
-        return time_k1()
+        return time_kernels()
     other = Path(args.other_tree).resolve()
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

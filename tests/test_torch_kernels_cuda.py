@@ -205,3 +205,213 @@ def test_sweep_sampler_rejects_bad_input(dev):
         plane_sweep_sample(feas[1].half(), projs[1], projs[0], dv)
     with pytest.raises(RuntimeError, match="inference-only"):
         plane_sweep_sample(feas[1].clone().requires_grad_(), projs[1], projs[0], dv)
+
+
+# --- K1 and K3 as redesigned: lane groups over 16-byte channel pieces, K3's
+# shared-memory window of the source plane and its flushes
+
+
+def _rig(dev, b, views, h, w, baseline=0.1, zoom=1.0, shift=0.0):
+    """Fused projections [B, 4, 4] of cameras side by side on a baseline;
+    the sources' focal length ``zoom`` times the reference's (a tile's taps
+    spread ``zoom`` times wider) and shifted by ``shift`` along x."""
+    projs = []
+    for v in range(views):
+        f = 1.2 * w * (zoom if v else 1.0)
+        k = torch.tensor([[f, 0.0, w / 2], [0.0, f, h / 2], [0.0, 0.0, 1.0]])
+        p = torch.eye(4)
+        p[:3, :3] = k
+        p[:3, 3] = k @ torch.tensor([baseline * v + (shift if v else 0.0), 0.3 * baseline * v, 0.0])
+        projs.append(p.expand(b, 4, 4).contiguous().to(dev))
+    return projs
+
+
+def _smooth_features(dev, dtype, b, h, w, c, views, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.nn.functional.interpolate(
+        torch.randn(b, c, max(h // 4, 2), max(w // 4, 2), generator=g), size=(h, w),
+        mode="bilinear").permute(0, 2, 3, 1).contiguous().to(dev, dtype)
+        for _ in range(views)]
+
+
+def _weights(dev, c, seed=0):
+    g = torch.Generator().manual_seed(seed + 100)
+    return (torch.rand(c, generator=g).to(dev) - 0.3,
+            *torch.tensor([0.1, 0.7, -0.05]).to(dev))
+
+
+def _k3(dev, dtype, feas, projs, dv, wts, seed=3):
+    """(K3's gradients, autograd of the plain forward in fp32) on a seeded
+    cotangent."""
+    b, h, w, c = feas[0].shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cot = torch.randn((b, dv.shape[1], h, w, c), generator=g, device=dev).to(dtype)
+    args = (feas[0], feas[1:], projs[0], projs[1:], dv, *wts)
+    n0 = fused_costvol.fused_adaptive_cost_volume_backward.launches
+    got = fused_costvol.fused_adaptive_cost_volume_backward(cot, *args)
+    torch.cuda.synchronize()
+    assert fused_costvol.fused_adaptive_cost_volume_backward.launches == n0 + 1
+    want = fused_costvol.fused_adaptive_cost_volume_backward_plain(
+        cot.float(), feas[0].float(), [f.float() for f in feas[1:]], projs[0], projs[1:],
+        dv, *wts)
+    return got, want
+
+
+def _assert_k3_close(got, want, dtype):
+    """chip_smoke.py's K3_TOL: per feature gradient, relative L2 <= 2e-3
+    (fp32) or 2^-8 + 2e-3 (bf16), and elementwise |d| <= rel * |plain| +
+    2e-2 * max |plain|. Not tighter elementwise: where the two order <w1, d2>
+    differently, a weight-net ReLU input within rounding of zero can take
+    the other side, and a few gradient entries move by percents (both
+    kernel versions show it at the same entries)."""
+    l2, rel = (2e-3, 0.0) if dtype == torch.float32 else (2.0 ** -8 + 2e-3, 2.0 ** -8)
+    for gt, wt in [(got[0], want[0])] + list(zip(got[1], want[1])):
+        assert gt.dtype == dtype and gt.shape == wt.shape
+        d = gt.float() - wt
+        norm = float(torch.linalg.vector_norm(wt))
+        assert (float(torch.linalg.vector_norm(d)) <= l2 * norm if norm > 0
+                else not bool(gt.any()))
+        assert bool((d.abs() <= rel * wt.abs() + 2e-2 * wt.abs().max()).all())
+    gw = torch.cat([got[2], torch.stack(got[3:])])
+    ww = torch.cat([want[2], torch.stack(want[3:])])
+    assert float((gw - ww).abs().max()) <= 1e-3 * float(ww.abs().max())
+
+
+def _sweep(dev, kind, b, d, h, w, seed=5):
+    """"uniform": a [B, D] sweep over 4..8; "random": per-pixel hypotheses
+    over the whole range, unsorted; "narrow": a band of 0.1 around a smooth
+    depth map, as ADIA's."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "uniform":
+        dv = torch.linspace(4, 8, d)[None].repeat(b, 1)
+    elif kind == "random":
+        dv = 4 + 4 * torch.rand(b, d, h, w, generator=g)
+    else:
+        centre = 5 + torch.nn.functional.interpolate(
+            torch.rand(b, 1, 3, 3, generator=g), size=(h, w), mode="bilinear")
+        dv = centre + torch.linspace(-0.05, 0.05, d)[None, :, None, None]
+    return dv.to(dev)
+
+
+@pytest.mark.parametrize("c", [8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["baseline", "zoom", "random"])
+def test_fused_costvol_backward_window_flushes(dev, c, dtype, case):
+    """K3 where its window must flush and re-anchor: a wide baseline under a
+    uniform sweep (the footprint crosses the window along D), sources at 4x
+    the focal length (a tile's footprint wider than the window), and
+    per-pixel hypotheses over the whole range (neighbours far apart)."""
+    b, h, w, views = 2, 48, 80, 3
+    projs = _rig(dev, b, views, h, w, baseline=0.6 if case == "baseline" else 0.1,
+                 zoom=4.0 if case == "zoom" else 1.0)
+    feas = _smooth_features(dev, dtype, b, h, w, c, views)
+    dv = _sweep(dev, "random" if case == "random" else "uniform", b, 12, h, w)
+    got, want = _k3(dev, dtype, feas, projs, dv, _weights(dev, c))
+    _assert_k3_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("c", [8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_pixel", [False, True])
+def test_fused_costvol_tile_edges(dev, c, dtype, per_pixel):
+    """H, W and D that are multiples of no tile, run or block: K1 against
+    its plain version, K3 against autograd of it."""
+    b, h, w, d, views = 2, 37, 53, 11, 3
+    projs = _rig(dev, b, views, h, w)
+    feas = _smooth_features(dev, dtype, b, h, w, c, views)
+    dv = _sweep(dev, "random" if per_pixel else "uniform", b, d, h, w)
+    wts = _weights(dev, c)
+    args = (feas[0], feas[1:], projs[0], projs[1:], dv, *wts)
+    got = fused_costvol.fused_adaptive_cost_volume(*args)
+    want = fused_costvol.fused_adaptive_cost_volume_plain(*args)
+    rel = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    assert bool(((got.float() - want.float()).abs() <= 1e-4 + rel * want.float().abs()).all())
+    _assert_k3_close(*_k3(dev, dtype, feas, projs, dv, wts), dtype)
+
+
+@pytest.mark.parametrize("views", [1, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_costvol_view_counts(dev, views, dtype):
+    """V=1 and V=16 (MAX_VIEWS) source views, K1 and K3."""
+    b, h, w, c = 1, 24, 40, 16
+    projs = _rig(dev, b, views + 1, h, w, baseline=0.02)
+    feas = _smooth_features(dev, dtype, b, h, w, c, views + 1)
+    dv = _sweep(dev, "narrow", b, 6, h, w)
+    wts = _weights(dev, c)
+    args = (feas[0], feas[1:], projs[0], projs[1:], dv, *wts)
+    got = fused_costvol.fused_adaptive_cost_volume(*args)
+    want = fused_costvol.fused_adaptive_cost_volume_plain(*args)
+    rel = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    assert bool(((got.float() - want.float()).abs() <= 1e-4 + rel * want.float().abs()).all())
+    _assert_k3_close(*_k3(dev, dtype, feas, projs, dv, wts), dtype)
+
+
+@pytest.mark.parametrize("c", [8, 32])
+def test_fused_costvol_backward_batch_stride(dev, c):
+    """B=2 sources that are views of one stacked [B, N, H, W, C] tensor
+    (one batch stride for all views), as the serving cascade passes them."""
+    b, h, w, views = 2, 24, 40, 4
+    projs = _rig(dev, b, views, h, w)
+    stacked = torch.stack(_smooth_features(dev, torch.bfloat16, b, h, w, c, views), dim=1)
+    feas = [stacked[:, v] for v in range(views)]
+    assert feas[1].stride(0) == views * h * w * c
+    dv = _sweep(dev, "narrow", b, 8, h, w)
+    got, want = _k3(dev, torch.bfloat16, feas, projs, dv, _weights(dev, c))
+    _assert_k3_close(got, want, torch.bfloat16)
+
+
+def test_fused_costvol_backward_all_taps_outside(dev):
+    """A source camera whose taps all fall outside its image: its gradient
+    is exactly zero, and the reference's still matches."""
+    b, h, w, c, views = 2, 24, 40, 16, 3
+    projs = _rig(dev, b, views, h, w, shift=1e3)
+    feas = _smooth_features(dev, torch.float32, b, h, w, c, views)
+    dv = _sweep(dev, "uniform", b, 8, h, w)
+    got, want = _k3(dev, torch.float32, feas, projs, dv, _weights(dev, c))
+    for g in got[1]:
+        assert not bool(g.any())
+    _assert_k3_close(got, want, torch.float32)
+
+
+def test_fused_costvol_backward_repeats(dev):
+    """Two K3 runs on the same inputs: fp32 atomics add in another order
+    each run, so they agree within the relative L2 tolerance of
+    chip_smoke.py's K3_TOL (2e-3 in fp32)."""
+    b, h, w, c, views = 2, 48, 80, 32, 4
+    projs = _rig(dev, b, views, h, w, baseline=0.6)
+    feas = _smooth_features(dev, torch.float32, b, h, w, c, views)
+    dv = _sweep(dev, "random", b, 8, h, w)
+    wts = _weights(dev, c)
+    cot = torch.randn((b, 8, h, w, c), device=dev)
+    args = (feas[0], feas[1:], projs[0], projs[1:], dv, *wts)
+    one = fused_costvol.fused_adaptive_cost_volume_backward(cot, *args)
+    two = fused_costvol.fused_adaptive_cost_volume_backward(cot, *args)
+    for a, z in [(one[0], two[0])] + list(zip(one[1], two[1])):
+        assert float(torch.linalg.vector_norm(a - z) / torch.linalg.vector_norm(z)) <= 2e-3
+
+
+@pytest.mark.parametrize("c", [8, 16, 32])
+def test_fused_costvol_backward_window_cuts_atomics(dev, c):
+    """Narrow per-pixel hypotheses: the window's flushes take at most a
+    quarter of the 16-byte atomics that scattering every tap would take
+    (valid taps x C/4, counted on the plain grid)."""
+    from damvsnet_tpu_torch.ops.warp import plane_sweep_grid
+    b, h, w, d, views = 2, 64, 96, 16, 4
+    projs = _rig(dev, b, views, h, w)
+    feas = _smooth_features(dev, torch.bfloat16, b, h, w, c, views)
+    dv = _sweep(dev, "narrow", b, d, h, w)
+    L = fused_costvol._prepare("k3", feas[0], feas[1:], projs[0], projs[1:], dv)
+    params = fused_costvol._params(*_weights(dev, c), L)
+    cot = torch.randn((b, d, h, w, c), device=dev).bfloat16()
+    counter = torch.zeros(1, dtype=torch.int64, device=dev)
+    fused_costvol._launch_backward(L, params, feas[0], feas[1:], cot, atomics=counter)
+    direct = 0
+    for p in projs[1:]:
+        px, py = plane_sweep_grid(p, projs[0], dv, h, w)
+        x0, y0 = px.floor(), py.floor()
+        for ox in (0, 1):
+            for oy in (0, 1):
+                x, y = x0 + ox, y0 + oy
+                direct += int(((x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)).sum())
+    direct *= c // 4
+    assert 0 < int(counter) <= direct // 4
