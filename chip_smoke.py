@@ -12,7 +12,9 @@ without printing its result line:
      at each stage's full-width serving shape, fp32 (TF32 off) and bf16;
      timed with CUDA events around the wrapper and, device time alone
      (kernel_ms), with torch.profiler;
-  4. K2, the probability-volume statistics, likewise;
+  4. K2, the probability-volume statistics, likewise, on an fp32 cost and
+     on a bf16 cost (the bf16 cascade hands K2 the regularizer's bf16
+     output, which the kernel reads as it is);
   5. the serving cascade (1152x864, N=5, ndepths 64/32/8, bf16, the
      trained weights of weights/bench_ckpt.npz) answering 3 requests
      through DepthRunner, with every launch counter set to 0 just before
@@ -35,13 +37,17 @@ without printing its result line:
      stage's full-width serving shape for every source view, fp32 (TF32
      off) and bf16, on the scene's FeatureNet maps and sweeps; timed beside
      F.grid_sample on the same normalized grid (the reference's own call),
-     with CUDA events and, device time alone, with torch.profiler;
+     with CUDA events and, device time alone, with torch.profiler; then
+     K4's variance entry at the same shapes against the plain variance cost
+     volume, timed beside the route it replaced (the sampler once per view
+     and the eager fp32 sums);
   9. the variance-aggregation serving cascade (as phase 5, agg_mode
      "variance", the trained weights less the weight nets): 1 warm-up and
      3 timed requests through DepthRunner with every launch counter set to
-     0 just before and read just after (K4 4 times a stage, K2 once, K1
-     never); the depth against the plain versions in bf16 and, with TF32
-     off, in fp32; then the same without geo fusion.
+     0 just before and read just after (K4's variance entry and K2 once a
+     stage, K4's sampler and K1 never); the depth against the plain
+     versions in bf16 and, with TF32 off, in fp32; then the same without
+     geo fusion.
 
 Times come from CUDA events after warm-up (kernels) or from the host clock
 around synchronised work (requests, steps). Each bound is the larger of
@@ -74,10 +80,15 @@ K1_TOL = {"fp32": 2e-3, "bf16": 2.0 ** -7 + 2e-3}
 # K4 against its plain version (fp32), on (kernel - plain) / (1 + |plain|):
 # fp32 is K1's reason; bf16: the plain version samples the same bf16 inputs
 # in fp32 and the kernel rounds once (half a bf16 step, 2^-9 relative).
+# K4's variance entry is held to the same limits against the plain
+# variance cost volume on the same inputs in fp32: the samples carry the
+# geometry's rounding into the fp32 sums, and in bf16 the kernel rounds the
+# variance once.
 K4_TOL = {"fp32": 2e-3, "bf16": 2.0 ** -8 + 2e-3}
-# K2 (fp32 only, as on the main path): prob to 1e-6; depth and sigma3 to
-# 1e-4 of sums over up to 64 hypotheses of depths near 5..10; confidence
-# flips where trunc(sum p*d) lands on the other side of an integer.
+# K2, on an fp32 cost and on a bf16 one (read exactly; the plain version
+# upcasts it): prob to 1e-6; depth and sigma3 to 1e-4 of sums over up to 64
+# hypotheses of depths near 5..10; confidence flips where trunc(sum p*d)
+# lands on the other side of an integer.
 K2_TOL = {"prob_volume": 1e-6, "depth": 1e-4, "variance": 1e-4}
 K2_MAX_FLIP_SHARE = 1e-4
 DEPTH_TOL_SHARE = 0.002  # p999 |depth - plain depth| <= 0.2 % of the range
@@ -111,9 +122,9 @@ STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_L2 = 1e-2
 # name keys of the kernels in profiler traces; the template argument after
 # the dtype is C, which names the stage (C = 32 / 16 / 8 at stages 1 / 2 / 3)
-K1_KERNEL, K2_KERNEL, K3_KERNEL, K4_KERNEL = (
+K1_KERNEL, K2_KERNEL, K3_KERNEL, K4_KERNEL, K4_VARIANCE_KERNEL = (
     "fused_costvol_kernel", "probstats_kernel", "fused_costvol_bwd_kernel",
-    "sweep_sampler_kernel")
+    "sweep_sampler_kernel", "sweep_variance_kernel")
 STAGE_OF_C = {32: 1, 16: 2, 8: 3}
 
 
@@ -157,7 +168,8 @@ def device_ms(fn, key, iters=5):
                 fn()
             torch.cuda.synchronize()
         us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and key in e.name)
+                 if e.device_type == DeviceType.CUDA and key in e.name
+                 and not e.name.startswith("Activity Buffer"))
         if us > 0:
             return us / 1e3 / iters
     raise RuntimeError(f"check failed: three traces saw no device kernel named like {key!r}")
@@ -234,9 +246,11 @@ def k1_bound_ms(b, d, h, w, c, v, elem, per_pixel):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def k2_bound_ms(b, d, h, w, per_pixel):
+def k2_bound_ms(b, d, h, w, per_pixel, cost_elem):
+    """The cost read once in its dtype, the depths, prob and the three maps
+    written once in fp32."""
     n = b * h * w
-    bytes_ = n * d * 4 * 2 + (n * d if per_pixel else b * d) * 4 + 3 * n * 4
+    bytes_ = n * d * (cost_elem + 4) + (n * d if per_pixel else b * d) * 4 + 3 * n * 4
     ops = n * d * 17 + n * 4  # 4 passes over d, the 4-tap window
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -291,9 +305,9 @@ def phase_k2(sample, dev):
         d = NDEPTHS[stage_idx]
         cost32 = 3 * torch.randn(1, d, h, w, generator=gen, device=dev)
         dv = sweep(sample, stage_idx, dev, gen)
-        # the stats tail is fp32 in both modes; "bf16" feeds a cost that was
-        # a bf16 regularizer output, as the bf16 cascade does
-        for tag, cost in (("fp32", cost32), ("bf16", cost32.bfloat16().float())):
+        # the stats are fp32 in both modes; "bf16" feeds the bf16 cost the
+        # bf16 cascade hands the kernel (the plain version upcasts it)
+        for tag, cost in (("fp32", cost32), ("bf16", cost32.bfloat16())):
             got = prob_volume_stats_fused(cost, dv)
             torch.cuda.synchronize()
             want = prob_volume_stats(cost, dv)
@@ -309,7 +323,8 @@ def phase_k2(sample, dev):
             row["ms"] = cuda_ms(lambda: prob_volume_stats_fused(cost, dv), 50)
             row["plain_ms"] = cuda_ms(lambda: prob_volume_stats(cost, dv), 10, 1)
             row["kernel_ms"] = device_ms(lambda: prob_volume_stats_fused(cost, dv), K2_KERNEL)
-            row["bound_ms"], row["bound_by"] = k2_bound_ms(1, d, h, w, dv.dim() == 4)
+            row["bound_ms"], row["bound_by"] = k2_bound_ms(1, d, h, w, dv.dim() == 4,
+                                                           cost.element_size())
             print("K2", json.dumps(row), flush=True)
             check(flips <= max(2, K2_MAX_FLIP_SHARE * h * w),
                   f"K2 stage {stage_idx + 1} {tag}: {flips} confidence flips")
@@ -351,12 +366,13 @@ def depth_parity(runner, model, batch, rng, bf16_depth):
 
 
 def kernel_counters():
-    """Every kernel wrapper, K1-K4: each path sets all of their launch
-    counters to 0 just before it runs and reads all of them just after."""
+    """Every kernel wrapper, K1-K4 (K4's sampler and variance entries): each
+    path sets all of their launch counters to 0 just before it runs and
+    reads all of them just after."""
     from damvsnet_tpu_torch.ops.kernels import fused_costvol, probstats, sweep_sampler
     return (fused_costvol.fused_adaptive_cost_volume, probstats.prob_volume_stats_fused,
             fused_costvol.fused_adaptive_cost_volume_backward,
-            sweep_sampler.plane_sweep_sample)
+            sweep_sampler.plane_sweep_sample, sweep_sampler.plane_sweep_variance)
 
 
 def reset_counters():
@@ -718,6 +734,71 @@ def phase_k4(sample, model, dev):
     return rows
 
 
+def k4_variance_bound_ms(b, d, h, w, c, v, elem, per_pixel):
+    """The V+1 feature planes read once, the depths, the volume written
+    once; per voxel and view ~30 operations of projection and tap weights,
+    4 taps x C fma and the two sums 2C; then the mean and variance ~5C."""
+    bytes_ = ((v + 1) * b * h * w * c * elem + b * d * (h * w if per_pixel else 1) * 4
+              + b * d * h * w * c * elem)
+    ops = b * d * h * w * (v * (10 * c + 30) + 5 * c)
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_k4_variance(sample, model, dev):
+    """K4's variance entry per stage and dtype on the scene's N views, one
+    launch for all of them, against the plain variance cost volume on the
+    same inputs in fp32. before_ms is the route it replaced (K4's sampler
+    once per view, then the eager fp32 sums), before_kernel_ms that route's
+    device time alone (every device activity); library_ms is null: no
+    single PyTorch call computes the function."""
+    import torch
+    from damvsnet_tpu_torch.ops.costvol import variance_cost_volume
+    from damvsnet_tpu_torch.ops.kernels.sweep_sampler import (plane_sweep_sample,
+                                                              plane_sweep_variance)
+    from damvsnet_tpu_torch.ops.warp import plane_sweep_warp
+    gen = torch.Generator(device=dev).manual_seed(5)
+    feats = {tag: stage_features(sample, model, dev, dtype)
+             for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16))}
+    rows = []
+    for stage_idx in range(3):
+        ref_p, src_p = stage_geometry(sample, stage_idx + 1, dev)
+        dv = sweep(sample, stage_idx, dev, gen)
+        for tag in ("fp32", "bf16"):
+            ref, srcs = feats[tag][stage_idx][0], list(feats[tag][stage_idx][1:])
+            args = (ref, srcs, ref_p, src_p, dv)
+            got = plane_sweep_variance(*args)
+            torch.cuda.synchronize()
+            want = variance_cost_volume(ref.float(), [x.float() for x in srcs], ref_p, src_p,
+                                        dv, warp=plane_sweep_warp)
+            diff = (got.float() - want).abs()
+            rel = float((diff / (1 + want.abs())).max())
+            row = {"stage": stage_idx + 1, "dtype": tag, "shape": list(got.shape),
+                   "views": len(srcs), "max_abs": float(diff.max()), "p999_abs": p999(diff),
+                   "max_rel": rel, "tol_rel": K4_TOL[tag]}
+            del got, want, diff
+
+            def before():
+                return variance_cost_volume(*args, warp=plane_sweep_sample)
+
+            row["ms"] = cuda_ms(lambda: plane_sweep_variance(*args), 10)
+            row["kernel_ms"] = device_ms(lambda: plane_sweep_variance(*args), K4_VARIANCE_KERNEL)
+            row["plain_ms"] = cuda_ms(lambda: variance_cost_volume(*args, warp=plane_sweep_warp),
+                                      1, 1)
+            row["before_ms"] = cuda_ms(before, 5)
+            row["before_kernel_ms"] = device_ms(before, "")
+            row["library_ms"] = None
+            b, h, w, c = ref.shape
+            row["bound_ms"], row["bound_by"] = k4_variance_bound_ms(
+                b, dv.shape[1], h, w, c, len(srcs), ref.element_size(), dv.dim() == 4)
+            print("K4 variance", json.dumps(row), flush=True)
+            check(rel <= K4_TOL[tag], f"K4 variance stage {stage_idx + 1} {tag}: "
+                  f"max rel {rel} > {K4_TOL[tag]}")
+            rows.append(row)
+            torch.cuda.empty_cache()
+    return rows
+
+
 def phase_variance(sample, model, dev):
     """The variance cascade: timed requests with the launch counters, then
     the depth against the plain versions, with and without geo fusion."""
@@ -735,7 +816,7 @@ def phase_variance(sample, model, dev):
                                           "peak_mem_gib": peak_gib, "launches": launches}),
           flush=True)
     check_launches("variance cascade", launches, {"prob_volume_stats_fused": 3,
-                                                  "plane_sweep_sample": 3 * (NVIEWS - 1)},
+                                                  "plane_sweep_variance": 3},
                    REQUESTS)
     depth = out["depth"]
     check(depth.shape == (1, HEIGHT, WIDTH), f"variance depth shape {depth.shape}")
@@ -812,6 +893,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     with torch.inference_mode():
         k4 = phase_k4(sample, model, dev)
+        k4_variance = phase_k4_variance(sample, model, dev)
     var_launches, var_request_ms = phase_variance(sample, model, dev)
 
     def summary(name, rows, source, replaces, counter):
@@ -848,6 +930,11 @@ def main():
                 "damvsnet_tpu_torch/ops/kernels/csrc/sweep_sampler.cu",
                 "damvsnet_tpu/ops/pallas/sweep_sampler.py:304",
                 "plane_sweep_sample"),
+        summary("plane_sweep_variance", k4_variance,
+                "damvsnet_tpu_torch/ops/kernels/csrc/sweep_sampler.cu",
+                "damvsnet_tpu/ops/pallas/sweep_sampler.py:304 + "
+                "damvsnet_tpu/ops/costvol.py:63-77",
+                "plane_sweep_variance"),
     ]
     print(f"cascade: {request_ms:.3f} ms per request (bf16, {smi})", flush=True)
     print(f"training: {step_ms:.3f} ms per step, peak {train_peak:.2f} GiB "

@@ -17,12 +17,12 @@ variance-aggregation variant and the fused-VJP training configuration,
                 resolution directly, and never materialized)
              -> cost volume: adaptive, the fused CUDA kernel K1 (in
                 training a torch.autograd.Function whose backward is kernel
-                K3); or variance, ``ops.costvol.variance_cost_volume`` over
-                the plane-sweep sampler kernel K4, one launch per source
-                view (inference only: K4 has no backward)
+                K3); or variance, K4's variance entry, one launch for all
+                views (inference only: K4 has no backward)
              -> CostRegNet 3-D U-Net (base widths ``cr_base_chs``)
              -> fp32 stats tail: softmax, soft-argmin depth, confidence,
-                3-sigma band (CUDA kernel K2 at inference; in training the
+                3-sigma band (CUDA kernel K2 at inference, reading the
+                regularized cost in the compute dtype; in training the
                 plain version under autograd, as the JAX package trains
                 through its XLA stats: K2 has no backward)
   handoff:   depth and sigma bilinearly upsampled to input resolution.
@@ -51,7 +51,7 @@ from ..ops.costvol import variance_cost_volume
 from ..ops.kernels.fused_costvol import (fused_adaptive_cost_volume,
                                          fused_adaptive_cost_volume_plain)
 from ..ops.kernels.probstats import prob_volume_stats_fused
-from ..ops.kernels.sweep_sampler import plane_sweep_sample
+from ..ops.kernels.sweep_sampler import plane_sweep_variance
 from ..ops.regression import prob_volume_stats
 from ..ops.resize import resize_bilinear, resize_trilinear_depth
 from ..ops.sampling import uncertainty_aware_samples
@@ -176,7 +176,7 @@ class CascadeMVSNet(nn.Module):
             volume = self._cost_volume(stage_idx, ref_fea, src_feas, fused[:, 0],
                                        [fused[:, v] for v in range(1, n)], samples)
             cost = self.cost_regularization[stage_idx](volume.permute(0, 4, 1, 2, 3))
-            out = stats(cost[:, 0].float(), samples)
+            out = stats(cost[:, 0], samples)
             out["depth_values"] = samples
             depth, sigma = out["depth"], out["variance"]
             outputs[name] = out
@@ -187,10 +187,12 @@ class CascadeMVSNet(nn.Module):
         """[B, D, h, w, C] in the feature dtype, contiguous: its
         ``permute(0, 4, 1, 2, 3)`` is a channels_last_3d view."""
         if self.agg_mode == "variance":
-            return variance_cost_volume(
-                ref_fea, src_feas, ref_proj, src_projs, samples,
-                warp=plane_sweep_warp if self.plain else plane_sweep_sample,
-                align_corners=self.align_corners)
+            if self.plain:
+                return variance_cost_volume(ref_fea, src_feas, ref_proj, src_projs,
+                                            samples, warp=plane_sweep_warp,
+                                            align_corners=self.align_corners)
+            return plane_sweep_variance(ref_fea, src_feas, ref_proj, src_projs, samples,
+                                        self.align_corners)
         costvol = (fused_adaptive_cost_volume_plain if self.plain
                    else fused_adaptive_cost_volume)
         w1, b1, w2, b2 = fold_aggweight(self.DepthNet.weight_net[stage_idx])

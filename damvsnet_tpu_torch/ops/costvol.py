@@ -5,9 +5,10 @@
         diff_v = (ref - warp_v)^2
         w_v    = weight_fn(diff_v)                  (AggWeightNetVolume)
         agg    = sum_v (w_v + 1) * diff_v / (N - 1)
-  * ``variance_cost_volume``, mode "variance": the variance over the N
-    volumes {ref, warp_v}, the reference replicated over D:
-    E[f^2] - E[f]^2.
+  * ``variance_cost_volume``, mode "variance" (over ``plane_sweep_warp``,
+    the plain version of K4's variance entry in
+    ops/kernels/sweep_sampler.py): the variance over the N volumes
+    {ref, warp_v}, the reference replicated over D: E[f^2] - E[f]^2.
 
 The sums run in fp32 whatever the feature dtype, and the result is cast
 to the feature dtype once, as the fused kernel does (the JAX package's
@@ -48,10 +49,11 @@ def variance_cost_volume(ref_fea: torch.Tensor, src_feas: Sequence[torch.Tensor]
                          align_corners: bool = False) -> torch.Tensor:
     """Shapes as ``build_cost_volume``; warp(src_fea, src_proj, ref_proj,
     depth_values, align_corners) -> [B,D,H,W,C] in fp32 or the feature
-    dtype: ``ops.warp.plane_sweep_warp`` or the sampler kernel
-    ``ops.kernels.sweep_sampler.plane_sweep_sample``. The fp32 sums take a
-    bf16 warp as it is (a bf16 product is exact in fp32), so no fp32 copy
-    of it is made. Returns [B,D,H,W,C] in the feature dtype."""
+    dtype: ``ops.warp.plane_sweep_warp`` (the plain version of the kernel
+    ``ops.kernels.sweep_sampler.plane_sweep_variance``) or the sampler
+    kernel ``plane_sweep_sample``. The fp32 sums take a bf16 warp as it is
+    (a bf16 product is exact in fp32), so no fp32 copy of it is made.
+    Returns [B,D,H,W,C] in the feature dtype."""
     ref_volume = ref_fea.float()[:, None]
     vol, sq = ref_volume, ref_volume ** 2  # broadcast over D by the first view
     for src_fea, src_proj in zip(src_feas, src_projs):

@@ -22,18 +22,13 @@ feature maps), volume [B, D, H, W, C] contiguous — its
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
 from typing import Sequence
 
 import torch
 
 from ..costvol import build_cost_volume
-from ..warp import geoms_from_projs, pixel_affine
-from ._common import (DTYPE_CODES, SUPPORTED_CHANNELS, check_cuda, check_launch,
-                      check_plane, depth_argument)
+from ._common import DTYPE_CODES, ViewLaunch, check_launch, prepare_views
 from .build import load
-
-MAX_VIEWS = 16  # kMaxViews in the CUDA sources
 
 
 def folded_weight_fn(w1, b1, w2, b2):
@@ -72,67 +67,7 @@ def fused_adaptive_cost_volume_backward_plain(grad_out, ref_fea, src_feas,
     return (grads[0], list(grads[1:1 + v]), *grads[1 + v:])
 
 
-@dataclass
-class _Launch:
-    """What K1 and K3 share for one call: shapes, strides, the per-view
-    geometry, the depth hypotheses and the grid affine."""
-    name: str
-    dev: torch.device
-    b: int
-    d: int
-    h: int
-    w: int
-    c: int
-    v: int
-    ref_bstride: int
-    src_bstride: int
-    geom: torch.Tensor
-    dv: torch.Tensor
-    per_pixel: int
-    affine: tuple
-
-
-def _prepare(name, ref_fea, src_feas, ref_proj, src_projs, depth_values) -> _Launch:
-    """Check the inputs (raise on what the kernels do not take) and build
-    every view's geometry at once, without a sync."""
-    dev = check_cuda(name, ref_fea, *src_feas, ref_proj, *src_projs, depth_values)
-    if ref_fea.dtype not in DTYPE_CODES:
-        raise ValueError(f"{name}: feature dtype {ref_fea.dtype} is not float32 "
-                         "or bfloat16")
-    b, h, w, c = ref_fea.shape
-    v = len(src_feas)
-    if c not in SUPPORTED_CHANNELS:
-        raise ValueError(f"{name}: C={c} not in {SUPPORTED_CHANNELS}")
-    check_plane(name, h, w, c)
-    if not 1 <= v <= MAX_VIEWS:
-        raise ValueError(f"{name}: {v} source views, supported 1..{MAX_VIEWS}")
-    if len(src_projs) != v:
-        raise ValueError(f"{name}: {v} source features but {len(src_projs)} "
-                         "projections")
-    plane = (w * c, c, 1)
-    if tuple(ref_fea.stride()[1:]) != plane:
-        raise ValueError(f"{name}: the reference [H, W, C] plane must be contiguous")
-    src_bstride = src_feas[0].stride(0) if b > 1 else 0
-    for s in src_feas:
-        if s.dtype != ref_fea.dtype or tuple(s.shape) != (b, h, w, c):
-            raise ValueError(f"{name}: source feature {tuple(s.shape)} "
-                             f"{s.dtype} does not match the reference "
-                             f"{(b, h, w, c)} {ref_fea.dtype}")
-        if tuple(s.stride()[1:]) != plane or (b > 1 and s.stride(0) != src_bstride):
-            raise ValueError(f"{name}: each source [H, W, C] plane must be "
-                             "contiguous, with one batch stride for all views")
-    if any(t.data_ptr() % 16 for t in (ref_fea, *src_feas)):
-        raise ValueError(f"{name}: feature pointers must be 16-byte aligned")
-    d = depth_values.shape[1]
-    dv, per_pixel = depth_argument(depth_values.detach(), b, d, h, w)
-    with torch.no_grad():
-        geom = geoms_from_projs(src_projs, ref_proj).contiguous()
-    return _Launch(name, dev, b, d, h, w, c, v,
-                   ref_fea.stride(0) if b > 1 else 0, src_bstride, geom, dv,
-                   per_pixel, (*pixel_affine(w), *pixel_affine(h)))
-
-
-def _params(w1, b1, w2, b2, L: _Launch) -> torch.Tensor:
+def _params(w1, b1, w2, b2, L: ViewLaunch) -> torch.Tensor:
     """[w1 (C), b1, w2, b2, 1/(N-1)] fp32, differentiable in w1..b2. Built
     on the device (a fill, never a host copy) so no launch syncs."""
     scal = [x.float().reshape(1) if torch.is_tensor(x)
@@ -160,7 +95,7 @@ def _bind_backward(lib):
     return fn
 
 
-def _launch_forward(L: _Launch, params, ref_fea, src_feas) -> torch.Tensor:
+def _launch_forward(L: ViewLaunch, params, ref_fea, src_feas) -> torch.Tensor:
     out = torch.empty((L.b, L.d, L.h, L.w, L.c), dtype=ref_fea.dtype, device=L.dev)
     params = params.detach().contiguous()
     fn = _bind_forward(load("fused_costvol"))
@@ -175,7 +110,7 @@ def _launch_forward(L: _Launch, params, ref_fea, src_feas) -> torch.Tensor:
     return out
 
 
-def _launch_backward(L: _Launch, params, ref_fea, src_feas, grad_out, atomics=None):
+def _launch_backward(L: ViewLaunch, params, ref_fea, src_feas, grad_out, atomics=None):
     """K3: (dref [B,H,W,C], [dsrc_v], dw [C+3] = dw1, db1, dw2, db2).
     ``atomics``, a one-element int64 CUDA tensor or None: the launch adds
     its count of 16-byte source-gradient atomics to it (a measurement;
@@ -241,8 +176,8 @@ def fused_adaptive_cost_volume(ref_fea: torch.Tensor,
     if ref_fea.device.type == "cpu":
         return fused_adaptive_cost_volume_plain(
             ref_fea, src_feas, ref_proj, src_projs, depth_values, w1, b1, w2, b2)
-    L = _prepare("fused_adaptive_cost_volume", ref_fea, src_feas, ref_proj,
-                 src_projs, depth_values)
+    L = prepare_views("fused_adaptive_cost_volume", ref_fea, src_feas, ref_proj,
+                      src_projs, depth_values)
     params = _params(w1, b1, w2, b2, L)
     if torch.is_grad_enabled() and (params.requires_grad or ref_fea.requires_grad
                                     or any(s.requires_grad for s in src_feas)):
@@ -266,8 +201,8 @@ def fused_adaptive_cost_volume_backward(grad_out: torch.Tensor,
         return fused_adaptive_cost_volume_backward_plain(
             grad_out, ref_fea, src_feas, ref_proj, src_projs, depth_values,
             w1, b1, w2, b2)
-    L = _prepare("fused_adaptive_cost_volume_backward", ref_fea, src_feas,
-                 ref_proj, src_projs, depth_values)
+    L = prepare_views("fused_adaptive_cost_volume_backward", ref_fea, src_feas,
+                      ref_proj, src_projs, depth_values)
     dref, dsrc, dw = _launch_backward(L, _params(w1, b1, w2, b2, L), ref_fea,
                                       src_feas, grad_out)
     c = L.c

@@ -9,7 +9,7 @@ CUDA kernel in ops/kernels/probstats.py.
                   sum_D p * index), 0, D-1)           (4-tap window)
   * sigma       = 3 * sqrt(sum_D p * (d - depth)^2)
 
-All in fp32.
+All in fp32: a bf16 cost is upcast first (exactly).
 """
 from __future__ import annotations
 
@@ -33,10 +33,11 @@ def photometric_confidence(prob_volume: torch.Tensor) -> torch.Tensor:
 
 
 def prob_volume_stats(prob_volume_pre: torch.Tensor, depth_values: torch.Tensor):
-    """prob_volume_pre [B, D, H, W] fp32 (pre-softmax); depth_values [B, D]
-    or [B, D, H, W]. Returns dict(depth, photometric_confidence, variance
-    (the 3-sigma band), each [B, H, W], and prob_volume [B, D, H, W])."""
-    prob_volume = torch.softmax(prob_volume_pre, dim=1)
+    """prob_volume_pre [B, D, H, W] (pre-softmax), fp32 or upcast to it;
+    depth_values [B, D] or [B, D, H, W]. Returns dict(depth,
+    photometric_confidence, variance (the 3-sigma band), each [B, H, W],
+    and prob_volume [B, D, H, W]), fp32."""
+    prob_volume = torch.softmax(prob_volume_pre.float(), dim=1)
     dv = _per_pixel(depth_values)
     depth = torch.sum(prob_volume * dv, dim=1)
     conf = photometric_confidence(prob_volume)

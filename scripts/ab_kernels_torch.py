@@ -1,7 +1,7 @@
-"""Compare the port's cost-volume kernels between this checkout and another
-one on one card.
+"""Compare the port's kernels between this checkout and another one on one
+card.
 
-    python3 scripts/ab_kernels_torch.py OTHER_TREE [--out DIR]
+    python3 scripts/ab_kernels_torch.py OTHER_TREE [--out DIR] [--serving-only]
 
 OTHER_TREE is another checkout of the repository, or of its
 ``damvsnet_tpu_torch`` package alone (e.g. the parent commit unpacked with
@@ -17,7 +17,15 @@ OTHER_TREE is another checkout of the repository, or of its
       - K1 at the three serving shapes (1152x864, N=5, bf16, ndepths
         64/32/8, random features seen by a rig of five cameras on a
         baseline);
-      - K3 and K1 at the three training shapes (512x640, B=4, N=5, bf16,
+      - at the same shapes and inputs, K4's sampler (the four source views'
+        launches of a stage), the variance cost volume by the tree's
+        serving route (K4's variance entry where the tree has one, else the
+        sampler once per view and the eager fp32 sums: its device time is
+        that of every device activity of the call), and K2 on a
+        fp32 and a bf16 cost (a tree whose K2 takes only fp32 gets the
+        bf16 cost upcast first, as its cascade did);
+      - unless --serving-only, K3 and K1 at the three training shapes
+        (512x640, B=4, N=5, bf16,
         the synthetic scenes' cameras, smooth random features, a seeded
         cotangent) with two sets of hypotheses: "wide", those of
         chip_smoke.py phase 6 (stage 1 the uniform [B, D] sweep, stages 2-3
@@ -48,6 +56,8 @@ from pathlib import Path
 THIS_TREE = Path(__file__).resolve().parent.parent
 KERNELS = ("fused_costvol", "fused_costvol_bwd")
 K1_KEY, K3_KEY = "fused_costvol_kernel", "fused_costvol_bwd_kernel"
+K2_KEY, K4_KEY, K4_VARIANCE_KEY = "probstats_kernel", "sweep_sampler_kernel", "sweep_variance_kernel"
+ANY_KERNEL = ""  # every device activity of the call
 STAGES = ((216, 288, 32, 64), (432, 576, 16, 32), (864, 1152, 8, 8))  # h, w, C, D
 TRAIN_STAGES = ((128, 160, 32, 64), (256, 320, 16, 32), (512, 640, 8, 8))
 TRAIN_B, D0, NARROW_HALF_BAND = 4, 192, (None, 4, 2)  # in stage-1 intervals
@@ -110,7 +120,8 @@ def timed(fn, key, iters=20):
             fn()
         torch.cuda.synchronize()
     us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and key in e.name)
+             if e.device_type == DeviceType.CUDA and key in e.name
+             and not e.name.startswith("Activity Buffer"))
     return start.elapsed_time(end) / iters, us / 1e3 / iters
 
 
@@ -142,6 +153,62 @@ def time_serving_k1(dev):
                 feas[0], feas[1:], projs[0], projs[1:], dv, *wts), K1_KEY)
         print(json.dumps({"kernel": "K1", "path": "serving", "stage": stage,
                           "shape": [1, d, h, w, c], "ms": ms, "kernel_ms": kernel_ms}))
+
+
+def time_serving_k4_k2(dev):
+    """K4's sampler, the variance route and K2 at the three serving shapes
+    (the inputs of time_serving_k1)."""
+    import torch
+    from damvsnet_tpu_torch.ops.costvol import variance_cost_volume
+    from damvsnet_tpu_torch.ops.kernels import probstats
+    from damvsnet_tpu_torch.ops.kernels import sweep_sampler as S
+    gen = torch.Generator(device=dev).manual_seed(0)
+    variance_entry = getattr(S, "plane_sweep_variance", None)
+    for stage, (h, w, c, d) in enumerate(STAGES, 1):
+        feas = [torch.randn(1, h, w, c, generator=gen, device=dev).bfloat16()
+                for _ in range(NVIEWS)]
+        projs = fused_projs(h, w, dev)
+        if stage == 1:
+            dv = torch.linspace(4, 8, d, device=dev)[None]
+        else:
+            dv = (4 + 4 * torch.rand(1, d, h, w, generator=gen, device=dev)).sort(dim=1).values
+        base = {"path": "serving", "stage": stage, "shape": [1, d, h, w, c]}
+        with torch.inference_mode():
+            ms, kernel_ms = timed(lambda: [S.plane_sweep_sample(x, p, projs[0], dv)
+                                           for x, p in zip(feas[1:], projs[1:])], K4_KEY)
+            print(json.dumps({"kernel": "K4 sampler", **base, "views": NVIEWS - 1, "ms": ms,
+                              "kernel_ms": kernel_ms}), flush=True)
+            if variance_entry is not None:
+                def route():
+                    return variance_entry(feas[0], feas[1:], projs[0], projs[1:], dv)
+                _, entry_ms = timed(route, K4_VARIANCE_KEY)
+            else:
+                def route():
+                    return variance_cost_volume(feas[0], feas[1:], projs[0], projs[1:], dv,
+                                                warp=S.plane_sweep_sample)
+                entry_ms = None
+            ms, route_kernel_ms = timed(route, ANY_KERNEL)
+            print(json.dumps({"kernel": "K4 variance route", **base,
+                              "route": "variance entry" if entry_ms is not None
+                              else "sampler + eager sums", "ms": ms,
+                              "device_ms": route_kernel_ms, "kernel_ms": entry_ms}), flush=True)
+            cost32 = 3 * torch.randn(1, d, h, w, generator=gen, device=dev)
+            for tag, cost in (("fp32", cost32), ("bf16", cost32.bfloat16())):
+                try:
+                    probstats.prob_volume_stats_fused(cost, dv)
+                    upcast = False
+                except ValueError:  # a K2 that takes only fp32
+                    upcast = True
+
+                def stats():
+                    return probstats.prob_volume_stats_fused(cost.float() if upcast else cost, dv)
+                ms, device_ms = timed(stats, ANY_KERNEL, 50)
+                _, kernel_ms = timed(stats, K2_KEY, 50)
+                print(json.dumps({"kernel": "K2", **base, "shape": [1, d, h, w], "cost": tag,
+                                  "upcast_first": upcast, "ms": ms, "device_ms": device_ms,
+                                  "kernel_ms": kernel_ms}), flush=True)
+        del feas
+        torch.cuda.empty_cache()
 
 
 def reckoned_atomics(projs, dv, h, w, c):
@@ -219,7 +286,8 @@ def time_training(dev):
                        "k1_kernel_ms": k1_kernel_ms,
                        "atomics_reckoned_per_tap": reckoned_atomics(projs, dv, h, w, c)}
                 if counts:
-                    L = K._prepare("ab", feas[0], feas[1:], projs[0], projs[1:], dv)
+                    prepare = getattr(K, "_prepare", None) or K.prepare_views
+                    L = prepare("ab", feas[0], feas[1:], projs[0], projs[1:], dv)
                     counter = torch.zeros(1, dtype=torch.int64, device=dev)
                     K._launch_backward(L, K._params(*wts, L), feas[0], feas[1:], cot,
                                        atomics=counter)
@@ -230,26 +298,30 @@ def time_training(dev):
         torch.cuda.empty_cache()
 
 
-def time_kernels():
-    """(In a tree's process.) K1 at the serving shapes, K3 and K1 at the
-    training shapes."""
+def time_kernels(training=True):
+    """(In a tree's process.) K1, K4 and K2 at the serving shapes; K3 and
+    K1 at the training shapes."""
     import torch
     dev = torch.device("cuda")
     time_serving_k1(dev)
-    time_training(dev)
+    time_serving_k4_k2(dev)
+    if training:
+        time_training(dev)
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("other_tree", nargs="?")
     ap.add_argument("--out", default="chiprun_out/ab_kernels")
+    ap.add_argument("--serving-only", action="store_true",
+                    help="skip K3 and K1 at the training shapes")
     ap.add_argument("--build", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--time", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.build:
         return build_libraries()
     if args.time:
-        return time_kernels()
+        return time_kernels(training=not args.serving_only)
     other = Path(args.other_tree).resolve()
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -268,7 +340,8 @@ def main():
                           "changed_lines": changed}), flush=True)
     for tag, tree in (("other", other), ("this", THIS_TREE), ("this", THIS_TREE),
                       ("other", other)):
-        for line in in_tree(tree, "--time").splitlines():
+        flags = ["--time"] + (["--serving-only"] if args.serving_only else [])
+        for line in in_tree(tree, *flags).splitlines():
             print(json.dumps({"tree": tag, **json.loads(line)}), flush=True)
 
 

@@ -8,8 +8,8 @@ Serving (the default): the cascade (1152x864, N=5, ndepths 64/32/8, bf16,
 the trained weights of weights/bench_ckpt.npz, the synthetic scene of
 chip_smoke.py) through DepthRunner, one warm-up request, then REPEATS
 requests under torch.profiler. ``--agg-mode variance`` serves the
-variance-aggregation cascade instead (the plane-sweep sampler K4, four
-launches a stage; the same weights less the weight nets).
+variance-aggregation cascade instead (K4's variance entry, one launch a
+stage for all views; the same weights less the weight nets).
 
 ``--train``: the training step of chip_smoke.py phase 7 (512x640, B=4,
 N=5, D0=192, ndepths 64/32/8, bf16, the trained weights, Adam under the
@@ -44,6 +44,7 @@ FAMILIES = (
     ("K3 fused cost volume backward", ("fused_costvol_bwd_kernel",)),
     ("K2 prob stats", ("probstats_kernel",)),
     ("K4 plane-sweep sampler", ("sweep_sampler_kernel",)),
+    ("K4 variance cost volume", ("sweep_variance_kernel",)),
     ("optimizer (Adam)", ("multi_tensor", "adam")),
     # cuDNN's BN kernels (bn_fw/bn_bw, batchnorm_*) before "cudnn" below
     ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "welford")),

@@ -21,7 +21,7 @@ from damvsnet_tpu.model import CascadeMVSNet as JCascade
 from damvsnet_tpu_torch.infer import DepthRunner
 from damvsnet_tpu_torch.model import CascadeMVSNet
 from damvsnet_tpu_torch.ops.kernels import fused_costvol, probstats
-from damvsnet_tpu_torch.ops.kernels.sweep_sampler import plane_sweep_sample
+from damvsnet_tpu_torch.ops.kernels.sweep_sampler import plane_sweep_sample, plane_sweep_variance
 from damvsnet_tpu_torch.utils.weights import state_dict_from_flax
 from torch_helpers import cascade_batch, perturbed_flat, unflat
 
@@ -75,7 +75,7 @@ def test_depth_runner_serves_variance(both):
     kernel is launched."""
     batch, want, port = both
     counters = (fused_costvol.fused_adaptive_cost_volume, probstats.prob_volume_stats_fused,
-                plane_sweep_sample)
+                plane_sweep_sample, plane_sweep_variance)
     counts = [fn.launches for fn in counters]
     out = DepthRunner(port, device="cpu")(batch)
     assert counts == [fn.launches for fn in counters]

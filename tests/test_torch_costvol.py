@@ -1,8 +1,10 @@
 """Kernel K1 (fused adaptive cost volume): the port's plain version and its
 wrapper on CPU tensors against the JAX Pallas kernel (interpret mode) and
 the JAX XLA path, on the same numpy inputs and the same weight net. The
-variance cost volume, over the plain warp and over the K4 wrapper, against
-JAX's variance mode on its Pallas sampler (interpret mode).
+variance cost volume, over the plain warp and over the K4 sampler wrapper,
+and K4's variance entry ``plane_sweep_variance`` on CPU tensors (its plain
+version), against JAX's variance mode on its Pallas sampler (interpret
+mode).
 
 Tolerance 5e-5, as tests/test_fused_costvol.py holds the Pallas kernel to
 the XLA path: the three implementations order the geometry and the sums
@@ -22,7 +24,7 @@ from damvsnet_tpu.ops.pallas.fused_costvol import fused_adaptive_cost_volume as 
 from damvsnet_tpu_torch.nn.aggweight import AggWeightNetVolume, fold_aggweight
 from damvsnet_tpu_torch.ops.costvol import build_cost_volume, variance_cost_volume
 from damvsnet_tpu_torch.ops.kernels import fused_costvol
-from damvsnet_tpu_torch.ops.kernels.sweep_sampler import plane_sweep_sample
+from damvsnet_tpu_torch.ops.kernels.sweep_sampler import plane_sweep_sample, plane_sweep_variance
 from damvsnet_tpu_torch.ops.warp import plane_sweep_warp
 from torch_helpers import fused_projs
 
@@ -139,9 +141,9 @@ def test_wrapper_keeps_feature_dtype(rng, wnets):
                                   ref.to(torch.bfloat16).float().numpy())
 
 
-@pytest.mark.parametrize("align_corners", [False, True])
-@pytest.mark.parametrize("per_pixel", [False, True])
-def test_variance_matches_jax(rng, per_pixel, align_corners):
+def _jax_variance(rng, per_pixel, align_corners):
+    """Seeded inputs as torch tensors (features, projections, depths) and
+    JAX's variance cost volume of them on its interpret-mode Pallas sampler."""
     projs = fused_projs(B, V + 1, H, W)
     feas = [rng.standard_normal((B, H, W, C)).astype(np.float32)
             for _ in range(V + 1)]
@@ -156,14 +158,32 @@ def test_variance_matches_jax(rng, per_pixel, align_corners):
         sampler="pallas", sampler_opts={"interpret": True, "wb": W, "band_rows": H},
         return_overflow=True)
     assert int(np.asarray(overflow).sum()) == 0
-    t = [torch.from_numpy(f) for f in feas]
-    tp = [torch.from_numpy(p) for p in projs]
+    return ([torch.from_numpy(f) for f in feas], [torch.from_numpy(p) for p in projs],
+            torch.from_numpy(dv), np.asarray(want))
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("per_pixel", [False, True])
+def test_variance_matches_jax(rng, per_pixel, align_corners):
+    t, tp, dv, want = _jax_variance(rng, per_pixel, align_corners)
     for warp in (plane_sweep_warp, plane_sweep_sample):
-        got = variance_cost_volume(t[0], t[1:], tp[0], tp[1:], torch.from_numpy(dv),
+        got = variance_cost_volume(t[0], t[1:], tp[0], tp[1:], dv,
                                    warp=warp, align_corners=align_corners)
         assert got.shape == (B, D, H, W, C) and got.is_contiguous()
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5,
-                                   err_msg=warp.__name__)
+        np.testing.assert_allclose(got.numpy(), want, atol=5e-5, err_msg=warp.__name__)
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("per_pixel", [False, True])
+def test_variance_entry_matches_jax(rng, per_pixel, align_corners):
+    """K4's variance entry on CPU tensors (its plain version) against JAX's
+    variance cost volume; no kernel launches."""
+    t, tp, dv, want = _jax_variance(rng, per_pixel, align_corners)
+    launches = (plane_sweep_variance.launches, plane_sweep_sample.launches)
+    got = plane_sweep_variance(t[0], t[1:], tp[0], tp[1:], dv, align_corners)
+    assert (plane_sweep_variance.launches, plane_sweep_sample.launches) == launches
+    assert got.dtype == torch.float32 and got.shape == (B, D, H, W, C) and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), want, atol=5e-5)
 
 
 def test_variance_keeps_feature_dtype(rng):
@@ -186,3 +206,10 @@ def test_variance_keeps_feature_dtype(rng):
                                warp=lambda *a: plane_sweep_sample(*a).float())
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.float().numpy(), ref.float().numpy())
+    # K4's variance entry sums the unrounded fp32 samples, rounded once
+    got = plane_sweep_variance(feas[0], feas[1:], projs[0], projs[1:], dv)
+    ref = variance_cost_volume(feas[0].float(), [f.float() for f in feas[1:]], projs[0],
+                               projs[1:], dv)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  ref.to(torch.bfloat16).float().numpy())

@@ -15,10 +15,11 @@ a rounding boundary.
 import pytest
 import torch
 
-from damvsnet_tpu_torch.ops.kernels import fused_costvol, probstats
-from damvsnet_tpu_torch.ops.kernels.sweep_sampler import plane_sweep_sample
+from damvsnet_tpu_torch.ops.costvol import variance_cost_volume
+from damvsnet_tpu_torch.ops.kernels import _common, fused_costvol, probstats
+from damvsnet_tpu_torch.ops.kernels.sweep_sampler import plane_sweep_sample, plane_sweep_variance
 from damvsnet_tpu_torch.ops.regression import prob_volume_stats
-from damvsnet_tpu_torch.ops.warp import plane_sweep_warp
+from damvsnet_tpu_torch.ops.warp import plane_sweep_grid, plane_sweep_warp
 from torch_helpers import fused_projs
 
 pytestmark = pytest.mark.cuda
@@ -395,12 +396,11 @@ def test_fused_costvol_backward_window_cuts_atomics(dev, c):
     """Narrow per-pixel hypotheses: the window's flushes take at most a
     quarter of the 16-byte atomics that scattering every tap would take
     (valid taps x C/4, counted on the plain grid)."""
-    from damvsnet_tpu_torch.ops.warp import plane_sweep_grid
     b, h, w, d, views = 2, 64, 96, 16, 4
     projs = _rig(dev, b, views, h, w)
     feas = _smooth_features(dev, torch.bfloat16, b, h, w, c, views)
     dv = _sweep(dev, "narrow", b, d, h, w)
-    L = fused_costvol._prepare("k3", feas[0], feas[1:], projs[0], projs[1:], dv)
+    L = _common.prepare_views("k3", feas[0], feas[1:], projs[0], projs[1:], dv)
     params = fused_costvol._params(*_weights(dev, c), L)
     cot = torch.randn((b, d, h, w, c), device=dev).bfloat16()
     counter = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -415,3 +415,99 @@ def test_fused_costvol_backward_window_cuts_atomics(dev, c):
                 direct += int(((x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)).sum())
     direct *= c // 4
     assert 0 < int(counter) <= direct // 4
+
+
+# --- K4's variance entry and K2 as redesigned
+
+
+@pytest.mark.parametrize("c", [8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_sweep_variance_matches_plain(dev, c, dtype, align_corners):
+    """K4's variance entry against its plain version on the same inputs in
+    fp32: W = 53 and H = 37 fill no block of pixels (P = 16..128), per-pixel
+    hypotheses over the whole range and a wide baseline put many taps off
+    the image. In bf16 the kernel rounds its fp32 variance once (half a
+    step, 2^-8 relative). One launch for all views; the sampler's counter
+    does not move."""
+    b, h, w, d, views = 2, 37, 53, 11, 4
+    projs = _rig(dev, b, views, h, w, baseline=0.6)
+    feas = _smooth_features(dev, dtype, b, h, w, c, views)
+    dv = _sweep(dev, "random", b, d, h, w)
+    n0 = (plane_sweep_variance.launches, plane_sweep_sample.launches)
+    with torch.no_grad():
+        got = plane_sweep_variance(feas[0], feas[1:], projs[0], projs[1:], dv, align_corners)
+    torch.cuda.synchronize()
+    assert (plane_sweep_variance.launches, plane_sweep_sample.launches) == (n0[0] + 1, n0[1])
+    want = variance_cost_volume(feas[0].float(), [f.float() for f in feas[1:]], projs[0],
+                                projs[1:], dv, warp=plane_sweep_warp,
+                                align_corners=align_corners)
+    assert got.dtype == dtype and got.shape == want.shape and got.is_contiguous()
+    # some hypotheses sample outside the source images
+    px, _ = plane_sweep_grid(projs[-1], projs[0], dv, h, w, align_corners)
+    assert bool((px < -1).any() | (px > w).any())
+    rel = 1e-4 if dtype == torch.float32 else 2.0 ** -8
+    assert bool(((got.float() - want).abs() <= 1e-4 + rel * want.abs()).all())
+
+
+@pytest.mark.parametrize("views", [1, 16])
+@pytest.mark.parametrize("per_pixel", [False, True])
+def test_sweep_variance_view_counts(dev, views, per_pixel):
+    """V = 1 and V = 16 source views, a [B, D] sweep or per-pixel depths,
+    and sources that are views of one stacked [B, N, H, W, C] tensor."""
+    b, h, w, c = 2, 24, 40, 16
+    projs = _rig(dev, b, views + 1, h, w, baseline=0.02)
+    stacked = torch.stack(_smooth_features(dev, torch.float32, b, h, w, c, views + 1), dim=1)
+    feas = [stacked[:, v] for v in range(views + 1)]
+    dv = _sweep(dev, "narrow" if per_pixel else "uniform", b, 6, h, w)
+    with torch.no_grad():
+        got = plane_sweep_variance(feas[0], feas[1:], projs[0], projs[1:], dv)
+    want = variance_cost_volume(feas[0], feas[1:], projs[0], projs[1:], dv)
+    assert bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
+
+
+def test_sweep_variance_rejects_bad_input(dev):
+    feas, projs, dv, *_ = _inputs(dev, torch.float32, 8, True, views=3)
+    with torch.no_grad():
+        with pytest.raises(ValueError):  # C not in (8, 16, 32)
+            plane_sweep_variance(feas[0][..., :4].contiguous(),
+                                 [f[..., :4].contiguous() for f in feas[1:]],
+                                 projs[0], projs[1:], dv)
+        with pytest.raises(ValueError):  # the views' dtypes differ
+            plane_sweep_variance(feas[0], [feas[1].bfloat16(), feas[2]], projs[0], projs[1:], dv)
+        with pytest.raises(ValueError):  # 17 source views
+            plane_sweep_variance(feas[0], feas[1:2] * 17, projs[0], projs[1:2] * 17, dv)
+        with pytest.raises(ValueError):  # the depths on another device
+            plane_sweep_variance(feas[0], feas[1:], projs[0], projs[1:], dv.cpu())
+    with pytest.raises(RuntimeError, match="inference-only"):
+        plane_sweep_variance(feas[0].clone().requires_grad_(), feas[1:], projs[0], projs[1:], dv)
+
+
+@pytest.mark.parametrize("d", [8, 32, 48, 64])
+@pytest.mark.parametrize("per_pixel", [False, True])
+def test_probstats_bf16_cost_any_depth_count(dev, d, per_pixel):
+    """K2 on a bf16 cost (converted exactly in the kernel) against the plain
+    version on its fp32 upcast: the templated D (8, 32, 64) and the general
+    loop (48), W = 37 filling no block of 32 pixels, and a pixel whose cost
+    holds a NaN, which makes all its outputs NaN in both."""
+    g = torch.Generator().manual_seed(d)
+    b, h, w = 2, 5, 37
+    cost = (3 * torch.randn(b, d, h, w, generator=g)).bfloat16()
+    cost[1, d // 2, 3, 7] = float("nan")
+    if per_pixel:
+        dv = (4 + 4 * torch.rand(b, d, h, w, generator=g)).sort(dim=1).values
+    else:
+        dv = torch.linspace(4, 8, d)[None].repeat(b, 1)
+    cost, dv = cost.to(dev), dv.to(dev)
+    n0 = probstats.prob_volume_stats_fused.launches
+    got = probstats.prob_volume_stats_fused(cost, dv)
+    torch.cuda.synchronize()
+    assert probstats.prob_volume_stats_fused.launches == n0 + 1
+    want = prob_volume_stats(cost.float(), dv)
+    assert bool(got["depth"][1, 3, 7].isnan()) and bool(got["prob_volume"][1, :, 3, 7].isnan().all())
+    for key, atol in (("prob_volume", 1e-6), ("depth", 1e-5), ("variance", 1e-5)):
+        torch.testing.assert_close(got[key], want[key], atol=atol, rtol=0, equal_nan=True)
+    gc, wc = got["photometric_confidence"], want["photometric_confidence"]
+    assert bool(gc[1, 3, 7].isnan()) and bool(wc[1, 3, 7].isnan())
+    flips = (gc - wc).abs() > 1e-5
+    assert int(flips.sum()) <= 2

@@ -56,3 +56,24 @@ def test_confidence_window_edges():
         torch.from_numpy(cost), torch.linspace(1, 2, d)[None])
     np.testing.assert_allclose(out["photometric_confidence"].numpy(), 1.0, atol=1e-6)
     np.testing.assert_allclose(out["depth"].numpy()[0, 0], [1.0, 2.0], atol=1e-6)
+
+
+@pytest.mark.parametrize("per_pixel", [False, True])
+def test_bf16_cost_equals_its_fp32_upcast(rng, per_pixel):
+    """A bf16 cost (the cascade hands K2 the regularizer's bf16 output) gives
+    exactly what its fp32 upcast gives, in the plain version and in the
+    wrapper on CPU tensors; every output is fp32."""
+    b, d, h, w = 2, 16, 8, 24
+    cost = torch.from_numpy((3 * rng.standard_normal((b, d, h, w))).astype(np.float32))
+    cost = cost.to(torch.bfloat16)
+    if per_pixel:
+        dv = np.sort(4 + 4 * rng.random((b, d, h, w)), axis=1).astype(np.float32)
+    else:
+        dv = np.linspace(4, 8, d, dtype=np.float32)[None].repeat(b, 0)
+    dv = torch.from_numpy(dv)
+    want = prob_volume_stats(cost.float(), dv)
+    for fn in (prob_volume_stats, probstats.prob_volume_stats_fused):
+        got = fn(cost, dv)
+        for key, value in want.items():
+            assert got[key].dtype == torch.float32
+            assert torch.equal(got[key], value), (fn.__name__, key)
