@@ -29,7 +29,8 @@ without printing its result line:
      the trained weights, Adam under the warmup schedule, CPC on): 1 warm
      step, then 3 timed steps through make_train_step with every launch
      counter set to 0 just before and read just after (K1 and K3 3 times a
-     step, K2 never); one more step under torch.profiler, for K1's and K3's
+     step, K2 never; the weight nets' running statistics do not move,
+     ``fused_train=True``); one more step under torch.profiler, for K1's and K3's
      device time per stage at the hypotheses the step itself makes (ADIA's
      at stages 2 and 3); then one batch's loss and gradients on the
      kernels against the plain versions, in fp32 with TF32 off;
@@ -47,7 +48,21 @@ without printing its result line:
      0 just before and read just after (K4's variance entry and K2 once a
      stage, K4's sampler and K1 never); the depth against the plain
      versions in bf16 and, with TF32 off, in fp32; then the same without
-     geo fusion.
+     geo fusion;
+ 10. the non-fused adaptive training step, the JAX CLI's default (phase
+     7's geometry, weights, optimizer and loss, ``fused_train=False``,
+     ``clamp_samples=False``: the plain warp under autograd, the weight
+     nets with batch-statistics BN): 1 warm step, then 3 timed steps with
+     every launch counter set to 0 just before and read just after (every
+     kernel 0 times); the weight nets' 12 running-statistics tensors move;
+ 11. the variance training step (as phase 10, agg_mode "variance", the
+     weights less the weight nets): 1 warm and 2 timed steps, every kernel
+     counter 0;
+ 12. one non-fused step's loss and gradients on the card against the same
+     step on the CPU (fp32, TF32 off; oneDNN off on the CPU, as the CPU
+     training tests run), adaptive and variance, at B=1, N=3, 64x64,
+     ndepths 8/8/8: the CPU step is the one the CPU tests hold against the
+     JAX package.
 
 Times come from CUDA events after warm-up (kernels) or from the host clock
 around synchronised work (requests, steps). Each bound is the larger of
@@ -120,6 +135,10 @@ K3_WNET_TOL = 1e-3
 # instead.
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_L2 = 1e-2
+# the non-fused steps: timed steps (phase 10 adaptive, phase 11 variance),
+# and phase 12's small shape, held to STEP_LOSS_RTOL and STEP_GRAD_L2
+NONFUSED_STEPS, VARIANCE_STEPS = 3, 2
+SMALL_H, SMALL_W, SMALL_NVIEWS, SMALL_D0, SMALL_NDEPTHS = 64, 64, 3, 16, (8, 8, 8)
 # name keys of the kernels in profiler traces; the template argument after
 # the dtype is C, which names the stage (C = 32 / 16 / 8 at stages 1 / 2 / 3)
 K1_KERNEL, K2_KERNEL, K3_KERNEL, K4_KERNEL, K4_VARIANCE_KERNEL = (
@@ -562,29 +581,36 @@ def grads_of_one_step(model, batch, plain):
     return float(total.detach()), grads
 
 
-def phase_train(dev):
+def timed_training(dev, path, steps, **config):
+    """A bf16 model of ``config`` on the trained weights, Adam under the
+    warmup schedule, make_train_step at phase 7's full width: 1 warm step,
+    then ``steps`` timed ones on their own batches with every launch
+    counter set to 0 just before and read just after. Prints the path's
+    line, checks the metrics are finite and the parameters moved. Returns
+    (model, state, step, batches, the state_dict before training,
+    {counter: launches}, mean step ms, peak GiB)."""
     import torch
     from damvsnet_tpu_torch.model import CascadeMVSNet
-    from damvsnet_tpu_torch.train.loop import batch_to_device, make_train_step
+    from damvsnet_tpu_torch.train.loop import make_train_step
     from damvsnet_tpu_torch.train.schedule import make_optimizer
     from damvsnet_tpu_torch.train.state import TrainState
     from damvsnet_tpu_torch.utils.weights import load_bench_weights
 
-    model = CascadeMVSNet(ndepths=NDEPTHS, compute_dtype=torch.bfloat16, device=dev)
-    load_bench_weights(model, SERVING_WEIGHTS)
+    model = CascadeMVSNet(ndepths=NDEPTHS, compute_dtype=torch.bfloat16, device=dev,
+                          **config)
+    load_bench_weights(model, SERVING_WEIGHTS)  # variance: warns, the weight nets go
     start = {k: v.clone() for k, v in model.state_dict().items()}
     optimizer, scheduler = make_optimizer(model.parameters(), 1e-3, "10,12,14:2",
                                           iters_per_epoch=1000)
     state = TrainState(model, optimizer, scheduler)
     step = make_train_step(device=dev)
-    batches = [train_batch(range(TRAIN_B * i, TRAIN_B * (i + 1)))
-               for i in range(TRAIN_STEPS + 1)]
+    batches = [train_batch(range(TRAIN_B * i, TRAIN_B * (i + 1))) for i in range(steps + 1)]
 
     t0 = time.perf_counter()
     warm = step(state, batches[0])
     torch.cuda.synchronize()
     warm_ms = (time.perf_counter() - t0) * 1e3
-    check(math.isfinite(float(warm["loss"])), f"warm-up step loss {float(warm['loss'])}")
+    check(math.isfinite(float(warm["loss"])), f"{path}: warm-up step loss {float(warm['loss'])}")
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
 
     reset_counters()
@@ -601,16 +627,41 @@ def phase_train(dev):
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     moved = sum(int(not torch.equal(p.detach(), before[k]))
                 for k, p in model.named_parameters())
-    print("train", json.dumps({"warmup_ms": warm_ms, "step_ms": step_ms,
-                               "peak_mem_gib": peak_gib, "launches": launches,
-                               "params_moved": moved,
-                               "params": len(before), "metrics": losses}), flush=True)
+    stats_moved = (len(weight_net_stats_moved(model, start))
+                   if model.agg_mode == "adaptive" else 0)
+    print(path, json.dumps({"warmup_ms": warm_ms, "step_ms": step_ms, "peak_mem_gib": peak_gib,
+                            "launches": launches, "params_moved": moved,
+                            "params": len(before), "weight_net_stats_moved": stats_moved,
+                            "metrics": losses}), flush=True)
     for m in losses:
-        check(all(math.isfinite(v) for v in m.values()), f"non-finite step metrics {m}")
-    check(moved > 0, "no parameter moved in the timed steps")
+        check(all(math.isfinite(v) for v in m.values()), f"{path}: non-finite step metrics {m}")
+    check(moved > 0, f"{path}: no parameter moved in the timed steps")
+    return (model, state, step, batches, start, launches,
+            float(sum(step_ms) / len(step_ms)), peak_gib)
+
+
+def weight_net_stats_moved(model, start):
+    """The names of the weight nets' 12 running-statistics tensors that
+    differ from ``start``'s."""
+    import torch
+    names = [k for k in start if k.startswith("DepthNet.weight_net")
+             and k.endswith(("running_mean", "running_var"))]
+    check(len(names) == 12, f"{len(names)} weight-net running-statistics tensors")
+    sd = model.state_dict()
+    return [k for k in names if not torch.equal(sd[k], start[k])]
+
+
+def phase_train(dev):
+    import torch
+    from damvsnet_tpu_torch.train.loop import batch_to_device
+
+    model, state, step, batches, start, launches, mean_ms, peak_gib = timed_training(
+        dev, "train", TRAIN_STEPS, fused_train=True)
     check_launches("training", launches, {"fused_adaptive_cost_volume": 3,
                                           "fused_adaptive_cost_volume_backward": 3},
                    TRAIN_STEPS)
+    check(not weight_net_stats_moved(model, start),
+          "fused training moved the weight nets' running statistics")
 
     # one more step, profiled: K1's and K3's device time per stage on the
     # hypotheses the step makes (stage 1 the uniform sweep, then ADIA's)
@@ -625,7 +676,7 @@ def phase_train(dev):
         check(sorted(by_stage) == [1, 2, 3], f"profiled step: {key} saw stages {sorted(by_stage)}")
 
     # one batch, the same weights: kernels against plain versions, fp32
-    del state, optimizer, scheduler, step
+    del state, step
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -653,7 +704,68 @@ def phase_train(dev):
     check(finite, "non-finite gradient in the fp32 step")
     check(abs(lk - lp) <= STEP_LOSS_RTOL * abs(lp), f"fp32 step loss {lk} vs plain {lp}")
     check(l2 <= STEP_GRAD_L2, f"fp32 step gradient relative L2 error {l2} > {STEP_GRAD_L2}")
-    return launches, float(sum(step_ms) / len(step_ms)), peak_gib
+    return launches, mean_ms, peak_gib
+
+
+def phase_train_nonfused(dev, path, agg_mode, steps):
+    """Phase 10 (adaptive) or 11 (variance): the non-fused training step at
+    phase 7's full width, as the JAX CLI builds it without --fused_train;
+    every kernel counter 0 in the timed steps, and (adaptive) the weight
+    nets' 12 running-statistics tensors moved. Returns ({counter:
+    launches}, mean step ms, peak GiB)."""
+    import torch
+    model, state, step, _, start, launches, mean_ms, peak_gib = timed_training(
+        dev, path, steps, agg_mode=agg_mode, fused_train=False, clamp_samples=False)
+    check_launches(path, launches, {}, steps)
+    if agg_mode == "adaptive":
+        moved = weight_net_stats_moved(model, start)
+        check(len(moved) == 12, f"{path}: {len(moved)} of the weight nets' 12 "
+              "running-statistics tensors moved")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return launches, mean_ms, peak_gib
+
+
+def phase_nonfused_vs_cpu():
+    """Phase 12: one non-fused step's loss and gradients, adaptive and
+    variance, on the card and on the CPU in fp32 (TF32 off on the card,
+    oneDNN off on the CPU), on the same weights and the same small batch."""
+    import torch
+    from damvsnet_tpu_torch.data.common import collate
+    from damvsnet_tpu_torch.data.synthetic import make_synthetic_sample
+    from damvsnet_tpu_torch.model import CascadeMVSNet
+    from damvsnet_tpu_torch.train.loop import batch_to_device
+    from damvsnet_tpu_torch.utils.weights import load_bench_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch = collate([make_synthetic_sample(height=SMALL_H, width=SMALL_W, nviews=SMALL_NVIEWS,
+                                           ndepths=SMALL_D0, seed=2)])
+    report = {}
+    for agg_mode in ("adaptive", "variance"):
+        results = {}
+        for name in ("cuda", "cpu"):
+            model = CascadeMVSNet(ndepths=SMALL_NDEPTHS, device=name, agg_mode=agg_mode,
+                                  fused_train=False, clamp_samples=False)
+            load_bench_weights(model, SERVING_WEIGHTS)
+            model.train()
+            with torch.backends.mkldnn.flags(enabled=False):
+                results[name] = grads_of_one_step(model, batch_to_device(batch, name),
+                                                  plain=False)
+        (lc, gc), (lp, gp) = results["cuda"], results["cpu"]
+        gc = {k: v.cpu() for k, v in gc.items()}
+        num = sum(float(((gc[k] - gp[k]) ** 2).sum()) for k in gc)
+        den = sum(float((gp[k] ** 2).sum()) for k in gp)
+        l2 = math.sqrt(num / max(den, 1e-30))
+        finite = all(bool(torch.isfinite(g).all()) for g in list(gc.values()) + list(gp.values()))
+        report[agg_mode] = {"loss_cuda": lc, "loss_cpu": lp, "grad_rel_l2": l2}
+        check(finite, f"{agg_mode}: non-finite gradient in the small fp32 step")
+        check(abs(lc - lp) <= STEP_LOSS_RTOL * abs(lp),
+              f"{agg_mode}: small step loss on the card {lc} vs the CPU {lp}")
+        check(l2 <= STEP_GRAD_L2, f"{agg_mode}: small step gradient relative L2 error "
+              f"{l2} > {STEP_GRAD_L2}")
+    report["tol"] = {"loss_rtol": STEP_LOSS_RTOL, "grad_rel_l2": STEP_GRAD_L2}
+    print("non-fused train, card vs CPU (fp32)", json.dumps(report), flush=True)
 
 
 def k4_bound_ms(b, d, h, w, c, elem, per_pixel):
@@ -895,13 +1007,22 @@ def main():
         k4 = phase_k4(sample, model, dev)
         k4_variance = phase_k4_variance(sample, model, dev)
     var_launches, var_request_ms = phase_variance(sample, model, dev)
+    del model
+    torch.cuda.empty_cache()
+    nonfused_launches, nonfused_ms, nonfused_peak = phase_train_nonfused(
+        dev, "training_nonfused", "adaptive", NONFUSED_STEPS)
+    var_train_launches, var_train_ms, var_train_peak = phase_train_nonfused(
+        dev, "training_variance", "variance", VARIANCE_STEPS)
+    phase_nonfused_vs_cpu()
 
     def summary(name, rows, source, replaces, counter):
         """bf16 rows summed over the stages (one request's or one step's
         launches); library_ms where one PyTorch call computes the same."""
         main_rows = [r for r in rows if r["dtype"] == "bf16"]
         by_path = {"serving": launches[counter], "training": train_launches[counter],
-                   "serving_variance": var_launches[counter]}
+                   "serving_variance": var_launches[counter],
+                   "training_nonfused": nonfused_launches[counter],
+                   "training_variance": var_train_launches[counter]}
         library = [r.get("library_ms") for r in main_rows]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -940,6 +1061,10 @@ def main():
     print(f"training: {step_ms:.3f} ms per step, peak {train_peak:.2f} GiB "
           f"(512x640, B=4, N=5, bf16, {smi})", flush=True)
     print(f"variance cascade: {var_request_ms:.3f} ms per request (bf16, {smi})", flush=True)
+    print(f"non-fused training: {nonfused_ms:.3f} ms per step, peak {nonfused_peak:.2f} GiB "
+          f"(512x640, B=4, N=5, bf16, {smi})", flush=True)
+    print(f"variance training: {var_train_ms:.3f} ms per step, peak {var_train_peak:.2f} GiB "
+          f"(512x640, B=4, N=5, bf16, {smi})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,16 +2,21 @@
 the reference train.py:19-77, less the JAX package's mesh, XLA-cache and
 debug-NaN flags).
 
-    python -m damvsnet_tpu_torch.cli.train --dataset synthetic \
+    python -m damvsnet_tpu_torch.cli.train --dataset dtu_yao \
+        --trainpath <dtu_training> --trainlist lists/dtu/train.txt \
         --logdir ./checkpoints --epochs 16 --batch_size 4 --nviews 5 \
         --numdepth 192 --loadckpt weights/bench_ckpt.npz
 
-It trains the fused configuration (fpn, adaptive aggregation with the
-folded weight net, detached handoff, clamped samples; the fused cost
-volume K1 with its backward K3 on the card), with geo fusion unless
-``--no_geo_fusion`` and U-Net widths ``--cr_base_chs``, on CUDA, or on
-the device ``--device`` names. Flags for what the port does not have yet
-raise, naming the ROADMAP item.
+It builds what the JAX CLI builds from the same flags: fpn, adaptive or
+variance aggregation (``--agg_mode``), detached handoff, geo fusion unless
+``--no_geo_fusion``, U-Net widths ``--cr_base_chs``. By default the cost
+volume trains through the plain warp with the weight net's batch
+statistics and unclamped hypotheses; ``--fused_train`` trains the adaptive
+cost volume through the fused kernels (K1 with its backward K3 on the
+card) with the folded weight net and clamped hypotheses. The DTU and
+BlendedMVS loaders need cv2 and PIL. It runs on CUDA, or on the device
+``--device`` names. Flags for what the port does not have yet raise,
+naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -19,10 +24,8 @@ import argparse
 import os
 import time
 
-_VARIANTS = "ROADMAP Queue 1, the variants slice"
+_VARIANTS = "ROADMAP Queue 1 item 12, the variants"
 _UNSUPPORTED = {
-    "agg_mode variance": "training with variance aggregation (it serves; the "
-                         "non-fused training path, ROADMAP Queue 1 item 10.1)",
     "use_fmt": "FMT (ROADMAP Queue 1 item 11)",
     "grad_method undetach": f"undetached stage handoff ({_VARIANTS})",
     "share_cr": f"shared cost regularizer ({_VARIANTS})",
@@ -34,7 +37,7 @@ def build_parser():
     p = argparse.ArgumentParser("damvsnet-tpu-torch train")
     p.add_argument("--mode", default="train", choices=["train"])
     p.add_argument("--model", default="mvsnet")
-    p.add_argument("--dataset", default="synthetic")
+    p.add_argument("--dataset", default="dtu_yao")
     p.add_argument("--trainpath", default=None)
     p.add_argument("--testpath", default=None)
     p.add_argument("--trainlist", default=None)
@@ -67,8 +70,11 @@ def build_parser():
     p.add_argument("--dtype", default="auto", choices=["auto", "bf16", "f32"],
                    help="compute dtype: auto = bf16 on CUDA, f32 elsewhere")
     p.add_argument("--fused_train", action="store_true",
-                   help="accepted for the JAX CLI's surface: the port always "
-                        "trains through the fused cost volume (K1/K3)")
+                   help="train the adaptive cost volume through the fused "
+                        "kernels (K1, backward K3) with the folded weight "
+                        "net (its BNs on running statistics) and clamped "
+                        "hypotheses; default: the plain warp, the weight "
+                        "net's batch statistics, unclamped hypotheses")
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--grad_accum", type=int, default=1)
     p.add_argument("--save_freq", type=int, default=0,
@@ -84,7 +90,6 @@ def build_parser():
 def check_supported(args) -> None:
     """Raise on a flag that asks for what the port does not have yet."""
     asked = {
-        "agg_mode variance": args.agg_mode == "variance",
         "use_fmt": args.use_fmt,
         "grad_method undetach": args.grad_method == "undetach",
         "share_cr": args.share_cr,
@@ -121,7 +126,10 @@ def main(argv=None):
         dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[args.dtype]
     cr_base_chs = tuple(int(x) for x in args.cr_base_chs.split(",") if x)
     model = CascadeMVSNet(ndepths=ndepths, compute_dtype=dtype, device=device,
-                          use_geo_fusion=not args.no_geo_fusion, cr_base_chs=cr_base_chs)
+                          agg_mode=args.agg_mode,
+                          use_geo_fusion=not args.no_geo_fusion, cr_base_chs=cr_base_chs,
+                          fused_train=args.fused_train,
+                          clamp_samples=args.fused_train)
 
     train_dataset = dataset_cls(args.trainpath, args.trainlist, "train",
                                 args.nviews, args.numdepth, args.interval_scale)

@@ -1,4 +1,16 @@
-"""Per-stage camera matrices (copy of damvsnet_tpu/core/cameras.py:93-118).
+"""MVSNet-format cam.txt IO and per-stage camera matrices (copy of
+damvsnet_tpu/core/cameras.py:48-118).
+
+cam.txt (the reference's readers, datasets/dtu_yao.py:56-74 and
+datasets/general_eval.py:59-79):
+
+    extrinsic
+    <4x4 world-to-camera matrix, rows on lines 1..4>
+    <blank>
+    intrinsic
+    <3x3 K, rows on lines 7..9>
+    <blank>
+    depth_min depth_interval [num_depth [depth_max]]
 
 Features are computed at 1/4, 1/2 and 1/1 of input resolution; per-stage
 intrinsics scale rows 0..1 of K by 1/2/4 (reference:
@@ -7,6 +19,51 @@ datasets/dtu_yao.py:222-243).
 from __future__ import annotations
 
 import numpy as np
+
+
+def read_cam_file(filename, interval_scale: float = 1.0, ndepths: int | None = None):
+    """Parse a MVSNet cam.txt.
+
+    Returns (intrinsics (3,3), extrinsics (4,4), depth_min, depth_interval).
+
+    If the depth line has >= 3 entries (num_depth present) and `ndepths` is
+    given, the interval is recomputed so that `ndepths` hypotheses span the
+    same total range (reference: datasets/general_eval.py:72-77).
+    `interval_scale` multiplies the interval (applied after the recompute,
+    matching general_eval; dtu_yao applies it directly since its cam files
+    have only 2 entries on the depth line).
+    """
+    with open(filename) as f:
+        lines = [line.rstrip() for line in f.readlines()]
+    extrinsics = np.fromstring(" ".join(lines[1:5]), dtype=np.float32, sep=" ").reshape(4, 4)
+    intrinsics = np.fromstring(" ".join(lines[7:10]), dtype=np.float32, sep=" ").reshape(3, 3)
+    fields = lines[11].split()
+    depth_min = float(fields[0])
+    depth_interval = float(fields[1])
+    if len(fields) >= 3 and ndepths is not None:
+        num_depth = int(float(fields[2]))
+        depth_max = depth_min + num_depth * depth_interval
+        depth_interval = (depth_max - depth_min) / ndepths
+    depth_interval *= interval_scale
+    return intrinsics, extrinsics, depth_min, depth_interval
+
+
+def write_cam_file(filename, intrinsics, extrinsics, depth_min, depth_interval,
+                   num_depth: int | None = None, depth_max: float | None = None):
+    """Write a MVSNet cam.txt (inverse of read_cam_file)."""
+    with open(filename, "w") as f:
+        f.write("extrinsic\n")
+        for row in np.asarray(extrinsics).reshape(4, 4):
+            f.write(" ".join(f"{v:.6f}" for v in row) + "\n")
+        f.write("\nintrinsic\n")
+        for row in np.asarray(intrinsics).reshape(3, 3):
+            f.write(" ".join(f"{v:.6f}" for v in row) + "\n")
+        tail = f"\n{depth_min} {depth_interval}"
+        if num_depth is not None:
+            tail += f" {num_depth}"
+            if depth_max is not None:
+                tail += f" {depth_max}"
+        f.write(tail + "\n")
 
 
 def stage_intrinsics(intrinsics: np.ndarray, num_stages: int = 3):

@@ -1,16 +1,23 @@
-"""Datasets (counterpart of damvsnet_tpu/data). The registry holds only the
-synthetic scene: the DTU, BlendedMVS and TnT loaders wait for their data
-and a loader without cv2 (ROADMAP Queue 1)."""
+"""Datasets (counterpart of damvsnet_tpu/data): the training loaders, DTU
+(``dtu_yao``, ``dtu``) and BlendedMVS, and the synthetic scene. The eval
+loaders wait for the test CLI that reads them (ROADMAP Queue 1 item 13)."""
+from .blendedmvs import BlendedMVSDataset
 from .common import DataLoader, collate
+from .dtu import DTUTrainDataset
 from .synthetic import SyntheticDataset, make_synthetic_sample
 
-_REGISTRY = {"synthetic": SyntheticDataset}
+_REGISTRY = {
+    "dtu_yao": DTUTrainDataset,
+    "dtu": DTUTrainDataset,
+    "blendedmvs": BlendedMVSDataset,
+    "synthetic": SyntheticDataset,
+}
+_EVAL_LOADERS = ("general_eval", "tnt_eval_trans")
 
 
 def find_dataset_def(name: str):
-    if name not in _REGISTRY:
+    if name in _EVAL_LOADERS:
         raise NotImplementedError(
-            f"dataset {name!r}: the port has only 'synthetic'; the DTU, "
-            "BlendedMVS and TnT loaders wait for their data and a loader "
-            "without cv2 (ROADMAP Queue 1 item 10.3)")
+            f"dataset {name!r}: the port's eval loaders wait for its test CLI "
+            "(ROADMAP Queue 1 item 13)")
     return _REGISTRY[name]

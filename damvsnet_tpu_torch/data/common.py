@@ -1,5 +1,6 @@
-"""Collation and a host-side loader with background prefetch; counterpart
-of damvsnet_tpu/data/common.py (without its cv2 augmentation helpers).
+"""Collation, a host-side loader with background prefetch, and BlendedMVS's
+training augmentations; counterpart of damvsnet_tpu/data/common.py (the
+augmentations are copies, ``motion_blur`` imports cv2 where it runs).
 
 Samples are dicts of numpy arrays in NHWC; ``collate`` stacks a leading
 batch axis. The loader's order is a function of (seed, epoch) only, so a
@@ -103,3 +104,46 @@ class DataLoader:
         finally:
             stop.set()
             t.join()
+
+
+def color_jitter(img: np.ndarray, rs: np.random.Generator,
+                 brightness: float = 0.25, contrast=(0.3, 1.5)) -> np.ndarray:
+    """torchvision ColorJitter(brightness=0.25, contrast=(0.3, 1.5)) on a
+    float [0, 255] HWC image (parity: datasets/blendedmvs.py:52)."""
+    ops = []
+    b = rs.uniform(max(0.0, 1 - brightness), 1 + brightness)
+    ops.append(lambda x: np.clip(x * b, 0, 255))
+    c = rs.uniform(*contrast)
+    ops.append(lambda x: np.clip(
+        c * x + (1 - c) * (0.299 * x[..., 0] + 0.587 * x[..., 1]
+                           + 0.114 * x[..., 2]).mean(), 0, 255))
+    order = rs.permutation(len(ops))
+    for i in order:
+        img = ops[i](img)
+    return img
+
+
+def motion_blur(img: np.ndarray, rs: np.random.Generator,
+                max_kernel_size: int = 3) -> np.ndarray:
+    """Random directional Gaussian-weighted blur
+    (parity: datasets/blendedmvs.py:17-37)."""
+    import cv2
+    mode = rs.choice(["h", "v", "diag_down", "diag_up"])
+    ksize = int(rs.integers(0, (max_kernel_size + 1) // 2)) * 2 + 1
+    center = (ksize - 1) // 2
+    kernel = np.zeros((ksize, ksize))
+    if mode == "h":
+        kernel[center, :] = 1.0
+    elif mode == "v":
+        kernel[:, center] = 1.0
+    elif mode == "diag_down":
+        kernel = np.eye(ksize)
+    else:
+        kernel = np.flip(np.eye(ksize), 0)
+    var = ksize * ksize / 16.0
+    grid = np.repeat(np.arange(ksize)[:, None], ksize, axis=-1)
+    gaussian = np.exp(-(np.square(grid - center) + np.square(grid.T - center))
+                      / (2.0 * var))
+    kernel = kernel * gaussian
+    kernel /= kernel.sum()
+    return cv2.filter2D(img, -1, kernel)

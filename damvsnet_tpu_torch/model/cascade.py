@@ -1,7 +1,7 @@
 """CascadeMVSNet forward, serving and training (counterpart of
-damvsnet_tpu/model/cascade.py in the shipped serving configuration, its
-variance-aggregation variant and the fused-VJP training configuration,
-``fused_train=True``).
+damvsnet_tpu/model/cascade.py: its serving configuration, its variance
+aggregation, and its training configurations, the default one and
+``fused_train``).
 
   views:     fpn FeatureNet; at inference all N views as one batch, in
              training one call per view (batch-statistics BN must not see
@@ -11,14 +11,26 @@ variance-aggregation variant and the fused-VJP training configuration,
              depth (not detached: in training stages 2 and 3 send gradient
              back into stage 1)
              -> ADIA depth sampling at full resolution from the DETACHED
-                previous depth and sigma, clamped into the input sweep
-                range (``clamp_samples``) -> trilinear snap to stage
+                previous depth and sigma, optionally clamped into the input
+                sweep range (``clamp_samples``) -> trilinear snap to stage
                 resolution (stage 1: the uniform sweep is built at stage
                 resolution directly, and never materialized)
-             -> cost volume: adaptive, the fused CUDA kernel K1 (in
-                training a torch.autograd.Function whose backward is kernel
-                K3); or variance, K4's variance entry, one launch for all
-                views (inference only: K4 has no backward)
+             -> cost volume, by route:
+                  serving, adaptive: the fused CUDA kernel K1 with the
+                    folded weight net;
+                  serving, variance: K4's variance entry, one launch for
+                    all views;
+                  training, adaptive, ``fused_train``: K1 as a
+                    torch.autograd.Function whose backward is kernel K3,
+                    with the folded weight net (its BNs on their running
+                    statistics);
+                  training, adaptive, default: ``build_cost_volume`` over
+                    the plain warp under autograd (the JAX package's XLA
+                    gather, cascade.py:208-211), the stage's weight net as
+                    a module with batch-statistics BN (cascade.py:192-194);
+                  training, variance: ``variance_cost_volume`` over the
+                    plain warp under autograd (K4 is inference-only, as on
+                    the TPU)
              -> CostRegNet 3-D U-Net (base widths ``cr_base_chs``)
              -> fp32 stats tail: softmax, soft-argmin depth, confidence,
                 3-sigma band (CUDA kernel K2 at inference, reading the
@@ -28,8 +40,8 @@ variance-aggregation variant and the fused-VJP training configuration,
   handoff:   depth and sigma bilinearly upsampled to input resolution.
 
 ``model.train()`` selects training: BatchNorm uses batch statistics
-(nn/blocks.py), except in the folded weight net, which keeps its running
-statistics (nn/aggweight.py). Inputs keep the JAX layout: images
+(nn/blocks.py); with ``fused_train`` the folded weight net keeps its
+running statistics (nn/aggweight.py). Inputs keep the JAX layout: images
 [B, N, H, W, 3], proj_matrices {stage: [B, N, 2, 4, 4]} (extrinsics in
 slot 0, stage K in slot 1), depth_values [B, D0]. The per-stage output
 dicts carry the JAX keys (depth, photometric_confidence, variance,
@@ -47,7 +59,7 @@ from ..nn.aggweight import AggWeightNetVolume, fold_aggweight
 from ..nn.costreg import CostRegNet
 from ..nn.feature import FeatureNet
 from ..nn.geofusion import GeoFeatureFusion
-from ..ops.costvol import variance_cost_volume
+from ..ops.costvol import build_cost_volume, variance_cost_volume
 from ..ops.kernels.fused_costvol import (fused_adaptive_cost_volume,
                                          fused_adaptive_cost_volume_plain)
 from ..ops.kernels.probstats import prob_volume_stats_fused
@@ -89,9 +101,12 @@ class CascadeMVSNet(nn.Module):
     cr_base_chs: each stage's U-Net base width. clamp_samples: clip the
     stage-2/3 hypotheses into the input sweep range. align_corners: the
     sampler's grid un-normalization, read only in variance mode (as in the
-    JAX package). plain: run the kernels' plain PyTorch versions instead of
-    the CUDA kernels (under autograd in training) — a reference for
-    checking the kernels on the card; nothing selects it on its own.
+    JAX package). fused_train: train the adaptive cost volume through K1/K3
+    with the folded weight net, read only in ``.train()``; off (the JAX
+    package's default), training takes the plain warp and the weight net's
+    batch statistics. plain: run the kernels' plain PyTorch versions
+    instead of the CUDA kernels (under autograd in training) — a reference
+    for checking the kernels on the card; nothing selects it on its own.
     device: where the parameters live, CUDA unless the caller names
     another; raises if CUDA is absent. The defaults are the shipped
     configuration.
@@ -102,7 +117,8 @@ class CascadeMVSNet(nn.Module):
                  plain: bool = False, device=None, agg_mode: str = "adaptive",
                  use_geo_fusion: bool = True,
                  cr_base_chs: Sequence[int] = (8, 8, 8),
-                 clamp_samples: bool = True, align_corners: bool = False):
+                 clamp_samples: bool = True, align_corners: bool = False,
+                 fused_train: bool = False):
         super().__init__()
         if len(ndepths) != 3 or len(cr_base_chs) != 3:
             raise ValueError(f"the cascade has 3 stages, got ndepths={ndepths}, "
@@ -118,6 +134,7 @@ class CascadeMVSNet(nn.Module):
         self.use_geo_fusion = use_geo_fusion
         self.clamp_samples = clamp_samples
         self.align_corners = align_corners
+        self.fused_train = fused_train
         self.feature = FeatureNet(base_channels=8)
         if use_geo_fusion:
             self.GeoFeatureFusionNet = GeoFeatureFusion()
@@ -186,17 +203,26 @@ class CascadeMVSNet(nn.Module):
     def _cost_volume(self, stage_idx, ref_fea, src_feas, ref_proj, src_projs, samples):
         """[B, D, h, w, C] in the feature dtype, contiguous: its
         ``permute(0, 4, 1, 2, 3)`` is a channels_last_3d view."""
+        plain_train = self.training and not (self.fused_train
+                                             and self.agg_mode == "adaptive")
         if self.agg_mode == "variance":
-            if self.plain:
+            if self.plain or plain_train:
                 return variance_cost_volume(ref_fea, src_feas, ref_proj, src_projs,
                                             samples, warp=plane_sweep_warp,
                                             align_corners=self.align_corners)
             return plane_sweep_variance(ref_fea, src_feas, ref_proj, src_projs, samples,
                                         self.align_corners)
+        net = self.DepthNet.weight_net[stage_idx]
+        if plain_train:
+            # the fp32 squared difference reaches the net rounded to the
+            # compute dtype, as the JAX package's convolutions take it; the
+            # net's weights come back in that dtype and the view sum stays fp32
+            return build_cost_volume(ref_fea, src_feas, ref_proj, src_projs, samples,
+                                     lambda diff_sq: net(diff_sq.to(self.compute_dtype)))
         costvol = (fused_adaptive_cost_volume_plain if self.plain
                    else fused_adaptive_cost_volume)
-        w1, b1, w2, b2 = fold_aggweight(self.DepthNet.weight_net[stage_idx])
-        return costvol(ref_fea, src_feas, ref_proj, src_projs, samples, w1, b1, w2, b2)
+        return costvol(ref_fea, src_feas, ref_proj, src_projs, samples,
+                       *fold_aggweight(net))
 
     def _view_features(self, imgs: torch.Tensor) -> list[dict]:
         """Per view, {stage: NHWC [B, h, w, C] feature map}. At inference

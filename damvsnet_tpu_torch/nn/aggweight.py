@@ -4,6 +4,16 @@
 w_net = Conv3d(C -> 1, 1x1x1, BN, ReLU) -> Conv3d(1 -> 1, 1x1x1, BN, ReLU)
 on the squared feature difference volume. The reference also constructs an
 unused ``conv0``; it never runs and is omitted.
+
+The net has two forms:
+
+  * the module's ``forward``, the non-fused training step's weight net (the
+    JAX package's default, ``fused_train=False``): in ``.train()`` its two
+    1-channel BNs normalize with batch statistics and update their running
+    statistics on every call, once per source view, as flax's chained
+    updates do;
+  * ``fold_aggweight``, the affine form the fused cost-volume kernel K1
+    evaluates per voxel, for serving and for ``fused_train``.
 """
 from __future__ import annotations
 
@@ -20,8 +30,11 @@ class AggWeightNetVolume(nn.Module):
                                    Conv3dBlock(1, 1, 1, 1, 0))
 
     def forward(self, x):
-        """[B, C, D, H, W] -> [B, 1, D, H, W] non-negative weights."""
-        return self.w_net(x)
+        """The [B, D, H, W, C] squared difference that ``build_cost_volume``'s
+        ``weight_fn`` receives -> [B, D, H, W, 1] non-negative weights, in
+        x's dtype. The NCDHW permutation is a channels_last_3d view, so no
+        copy is made."""
+        return self.w_net(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
 
 
 def fold_aggweight(net: AggWeightNetVolume):
@@ -31,11 +44,11 @@ def fold_aggweight(net: AggWeightNetVolume):
     evaluates per voxel. Returns (w1 [C], b1, w2, b2) fp32 tensors on the
     net's device; nothing leaves the device.
 
-    This is the weight net's only form, in training too (the JAX package's
-    ``fused_train`` semantics, damvsnet_tpu/model/cascade.py:87-97): the
-    fold is differentiable, so gradient reaches the conv weights and the
-    BN weight/bias, while the two BNs keep using, and never update, their
-    running statistics (the net's forward is never called)."""
+    The form for serving, and for training with ``fused_train`` (the JAX
+    package's semantics, damvsnet_tpu/model/cascade.py:87-97): the fold is
+    differentiable, so gradient reaches the conv weights and the BN
+    weight/bias, while the two BNs keep using, and never update, their
+    running statistics (the net's forward is not called)."""
     def fold(block):
         bn = block.bn
         s = bn.weight.float() / torch.sqrt(bn.running_var.float() + BN_EPS)

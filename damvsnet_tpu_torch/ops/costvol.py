@@ -15,6 +15,16 @@ to the feature dtype once, as the fused kernel does (the JAX package's
 variance mode rounds every partial sum to bf16 in bf16; ROADMAP Queue 3).
 One warped volume at a time is alive. Layout: features NHWC; the volume
 [B, D, H, W, C] contiguous.
+
+Both are the non-fused training step's cost volumes, under autograd over
+``plane_sweep_warp`` (its sampling coordinates detached). With a bf16
+compute dtype the warp and the sums stay fp32 (the warp reads the bf16
+features exactly); the cascade hands the weight net the squared difference
+rounded to the compute dtype, as the JAX package's weight net convolves it
+under its compute-dtype scope, and the net's bf16 weights scale the fp32
+difference in fp32. The forward still holds one warped volume at a time;
+for the backward, autograd keeps per view the fp32 difference (variance:
+the sample) and, adaptive, its square and the weight net's input.
 """
 from __future__ import annotations
 

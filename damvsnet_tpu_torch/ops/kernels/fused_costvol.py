@@ -43,11 +43,9 @@ def folded_weight_fn(w1, b1, w2, b2):
 def fused_adaptive_cost_volume_plain(ref_fea, src_feas, ref_proj, src_projs,
                                      depth_values, w1, b1, w2, b2):
     """The kernel's plain PyTorch version (same inputs, same result).
-    The sampling grid's inputs are detached, so torch autograd through this
-    function is the plain version of K3."""
-    return build_cost_volume(ref_fea, src_feas, ref_proj.detach(),
-                             [p.detach() for p in src_projs],
-                             depth_values.detach(),
+    The plain warp detaches its sampling coordinates, so torch autograd
+    through this function is the plain version of K3."""
+    return build_cost_volume(ref_fea, src_feas, ref_proj, src_projs, depth_values,
                              folded_weight_fn(w1, b1, w2, b2))
 
 

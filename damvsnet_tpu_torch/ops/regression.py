@@ -21,7 +21,9 @@ def _per_pixel(depth_values: torch.Tensor) -> torch.Tensor:
 
 
 def photometric_confidence(prob_volume: torch.Tensor) -> torch.Tensor:
-    """4-tap window sum gathered at the soft argmax index, as a masked sum."""
+    """4-tap window sum gathered at the soft argmax index, as a masked sum.
+    No gradient: the input is detached, as in the reference."""
+    prob_volume = prob_volume.detach()
     d = prob_volume.shape[1]
     d_iota = torch.arange(d, dtype=prob_volume.dtype,
                           device=prob_volume.device)[None, :, None, None]

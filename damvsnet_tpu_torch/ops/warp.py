@@ -119,12 +119,15 @@ def bilinear_sample_zeros(img: torch.Tensor, px: torch.Tensor,
     wx = (px - x0)[..., None]
     wy = (py - y0)[..., None]
     img_flat = img.reshape(b, h * w, c).float()
-    bidx = torch.arange(b, device=img.device)[:, None]
 
     def tap(xf, yf):
         valid = (xf >= 0) & (xf <= w - 1) & (yf >= 0) & (yf <= h - 1)
         idx = (yf.clamp(0, h - 1) * w + xf.clamp(0, w - 1)).long()
-        return img_flat[bidx, idx] * valid[..., None]
+        # torch.gather, whose backward is a scatter-add (atomics on the
+        # card): advanced indexing's backward sorts the indices and took
+        # half the non-fused training step's device time there, and
+        # index_select with index_add_ took 5.7x gather's (PERF.md)
+        return torch.gather(img_flat, 1, idx[..., None].expand(-1, -1, c)) * valid[..., None]
 
     out = (tap(x0, y0) * (1 - wx) * (1 - wy) + tap(x0 + 1, y0) * wx * (1 - wy)
            + tap(x0, y0 + 1) * (1 - wx) * wy + tap(x0 + 1, y0 + 1) * wx * wy)
@@ -136,7 +139,11 @@ def plane_sweep_warp(src_fea: torch.Tensor, src_proj: torch.Tensor,
                      align_corners: bool = False) -> torch.Tensor:
     """Warp source features over depth hypotheses into the reference
     frustum: [B, H, W, C] -> [B, D, H, W, C] fp32. The plain version of
-    the plane-sweep sampler kernel (ops/kernels/sweep_sampler.py)."""
+    the plane-sweep sampler kernel (ops/kernels/sweep_sampler.py), and the
+    non-fused training step's sampler. Gradient reaches the source
+    features only: the sampling coordinates are detached, as the
+    reference's grid is built under no_grad (module.py:297-300), so the
+    depth hypotheses and the projections get none."""
     _, h, w, _ = src_fea.shape
     px, py = plane_sweep_grid(src_proj, ref_proj, depth_values, h, w, align_corners)
-    return bilinear_sample_zeros(src_fea, px, py)
+    return bilinear_sample_zeros(src_fea, px.detach(), py.detach())

@@ -61,7 +61,7 @@ def main():
     scenes = [int(s) for s in args.scenes.split(",")]
     batch = batch_to_device(collate([make_synthetic_sample(32, 32, 3, 16, seed=s)
                                      for s in scenes]), "cpu")
-    model = CascadeMVSNet(ndepths=(8, 8, 8), device="cpu")
+    model = CascadeMVSNet(ndepths=(8, 8, 8), device="cpu", fused_train=True)
     if args.init == "trained":
         load_bench_weights(model, "weights/bench_ckpt.npz")
     init_state = {k: v.clone() for k, v in model.state_dict().items()}

@@ -1,6 +1,6 @@
 """Where the PyTorch/CUDA port spends device time, serving or training.
 
-    python3 scripts/profile_torch_cascade.py [--train | --agg-mode variance]
+    python3 scripts/profile_torch_cascade.py [--train [--nonfused]] [--agg-mode variance]
                                           [--cudnn-benchmark] [--trace PATH]
                                           (repository root, one GPU)
 
@@ -14,7 +14,11 @@ stage for all views; the same weights less the weight nets).
 ``--train``: the training step of chip_smoke.py phase 7 (512x640, B=4,
 N=5, D0=192, ndepths 64/32/8, bf16, the trained weights, Adam under the
 warmup schedule, CPC on) through make_train_step, two warm-up steps on
-their own batches, then REPEATS steps under torch.profiler.
+their own batches, then REPEATS steps under torch.profiler. ``--train
+--nonfused``: the same step as the JAX CLI's default builds it (phase 10:
+``fused_train=False``, unclamped hypotheses, the plain warp under autograd,
+the weight nets with batch statistics); ``--train --agg-mode variance``:
+the variance training step (phase 11, always non-fused).
 
 Prints device time per kernel family, the top kernels and the slowest
 convolutions with their input shapes, the device's busy and idle share of
@@ -52,7 +56,10 @@ FAMILIES = (
                      "implicit", "winograd", "sm90", "fft")),
     ("resize", ("upsample", "interp")),
     ("pooling", ("pool",)),
-    ("reduction", ("reduce", "softmax", "sort", "min_max")),
+    # the plain warp's gather and, in its backward, index_put's sort and
+    # accumulate (non-fused training)
+    ("gather / scatter", ("index", "scatter", "gather", "radix", "sort")),
+    ("reduction", ("reduce", "softmax", "min_max")),
     ("copy / layout", ("copy", "memcpy", "memset", "cat", "fill")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 )
@@ -87,7 +94,7 @@ def serving_request(agg_mode="adaptive"):
     return lambda: runner(batch)
 
 
-def training_step():
+def training_step(fused=True, agg_mode="adaptive"):
     """Warm the training step up (two steps); return one more step, on a
     batch of its own."""
     import torch
@@ -99,7 +106,8 @@ def training_step():
     from damvsnet_tpu_torch.train.state import TrainState
     from damvsnet_tpu_torch.utils.weights import load_bench_weights
 
-    model = CascadeMVSNet(ndepths=(64, 32, 8), compute_dtype=torch.bfloat16)
+    model = CascadeMVSNet(ndepths=(64, 32, 8), compute_dtype=torch.bfloat16, agg_mode=agg_mode,
+                          fused_train=fused, clamp_samples=fused)
     load_bench_weights(model, "weights/bench_ckpt.npz")
     optimizer, scheduler = make_optimizer(model.parameters(), 1e-3, "10,12,14:2",
                                           iters_per_epoch=1000)
@@ -132,9 +140,10 @@ def main():
     build.build()
     train = "--train" in args
     agg_mode = args[args.index("--agg-mode") + 1] if "--agg-mode" in args else "adaptive"
-    if train and agg_mode != "adaptive":
-        raise SystemExit("--train profiles the fused adaptive training step only")
-    unit, run = (("step", training_step()) if train
+    fused = "--nonfused" not in args and agg_mode == "adaptive"
+    if "--nonfused" in args and not train:
+        raise SystemExit("--nonfused profiles a training step: pass --train")
+    unit, run = (("step", training_step(fused, agg_mode)) if train
                  else ("request", serving_request(agg_mode)))
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -179,6 +188,7 @@ def main():
         prof.export_chrome_trace(path)
     print(json.dumps({
         "card": smi, "workload": "training" if train else "serving",
+        "fused_train": fused if train else None,
         "agg_mode": agg_mode, f"{unit}s": REPEATS,
         f"wall_ms_per_{unit}": wall_ms / REPEATS,
         f"device_busy_ms_per_{unit}": busy_ms / REPEATS,

@@ -10,6 +10,8 @@ Tolerance 5e-5, as tests/test_fused_costvol.py holds the Pallas kernel to
 the XLA path: the three implementations order the geometry and the sums
 differently in fp32. The Pallas kernel needs 128 % C == 0 and H % 8 == 0.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -26,7 +28,7 @@ from damvsnet_tpu_torch.ops.costvol import build_cost_volume, variance_cost_volu
 from damvsnet_tpu_torch.ops.kernels import fused_costvol
 from damvsnet_tpu_torch.ops.kernels.sweep_sampler import plane_sweep_sample, plane_sweep_variance
 from damvsnet_tpu_torch.ops.warp import plane_sweep_warp
-from torch_helpers import fused_projs
+from torch_helpers import flax_two_pass_variance, fused_projs
 
 torch.set_num_threads(1)
 
@@ -69,12 +71,11 @@ def wnets():
 def test_fold_aggweight_matches_module(rng, wnets):
     """The port's fold equals its module, and JAX's fold."""
     _, jvars, port = wnets
-    x = rng.random((2, C, 3, 4, 5)).astype(np.float32)
+    x = rng.random((2, 3, 4, 5, C)).astype(np.float32)
     with torch.no_grad():
         want = port(torch.from_numpy(x))
     w1, b1, w2, b2 = fold_aggweight(port)
-    got = fused_costvol.folded_weight_fn(w1, b1, w2, b2)(
-        torch.from_numpy(x).permute(0, 2, 3, 4, 1)).permute(0, 4, 1, 2, 3)
+    got = fused_costvol.folded_weight_fn(w1, b1, w2, b2)(torch.from_numpy(x))
     np.testing.assert_allclose(got.detach().numpy(), want.numpy(), atol=1e-5)
     for a, b in zip((w1, b1, w2, b2), jfold(jvars)):
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=1e-6)
@@ -110,9 +111,8 @@ def test_plain_and_wrapper_match_jax(rng, wnets, per_pixel):
         got_wrapper = fused_costvol.fused_adaptive_cost_volume(
             t[0], t[1:], tp[0], tp[1:], torch.from_numpy(dv), w1, b1, w2, b2)
         # the plain version with the unfolded module as its weight net
-        got_module = build_cost_volume(
-            t[0], t[1:], tp[0], tp[1:], torch.from_numpy(dv),
-            lambda d2: port(d2.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1))
+        got_module = build_cost_volume(t[0], t[1:], tp[0], tp[1:],
+                                       torch.from_numpy(dv), port)
     assert fused_costvol.fused_adaptive_cost_volume.launches == launches
     assert got_wrapper.shape == (B, D, H, W, C)
     for got in (got_wrapper.numpy(), got_module.numpy()):
@@ -139,6 +139,76 @@ def test_wrapper_keeps_feature_dtype(rng, wnets):
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.float().numpy(),
                                   ref.to(torch.bfloat16).float().numpy())
+
+
+@pytest.mark.parametrize("mode", ["adaptive", "variance"])
+def test_training_volume_matches_jax(rng, wnets, mode):
+    """The non-fused training step's cost volume under autograd, against
+    JAX's XLA path in training (flax's batch variance two-pass): adaptive,
+    ``build_cost_volume`` with the weight net's live form (batch-statistics
+    BN, its running statistics updated once per source view, chained as
+    flax chains them), and variance. The volume and the updated statistics
+    at 5e-5, and the gradients of sum(volume * cot) with respect to the
+    features and the weight net's parameters within 1e-4 of the largest JAX
+    entry of each (a weight-net block's, for its BN-normalized tensors; see
+    tests/test_torch_train_step_nonfused.py)."""
+    net, jvars, port = wnets
+    projs = fused_projs(B, V + 1, H, W)
+    feas = [rng.standard_normal((B, H, W, C)).astype(np.float32) for _ in range(V + 1)]
+    dv = (4 + 4 * rng.random((B, D, H, W))).astype(np.float32)
+    cot = rng.standard_normal((B, D, H, W, C)).astype(np.float32)
+
+    def jvolume(feas, params):
+        stats = jvars["batch_stats"]
+
+        def weight_fn(vol):
+            nonlocal stats
+            w, mutated = net.apply({"params": params, "batch_stats": stats}, vol, True,
+                                   mutable=["batch_stats"])
+            stats = mutated["batch_stats"]
+            return w
+
+        vol = jbuild(feas[0], feas[1:], jnp.asarray(projs[0]),
+                     [jnp.asarray(p) for p in projs[1:]], jnp.asarray(dv), mode=mode,
+                     weight_fn=weight_fn if mode == "adaptive" else None, sampler="xla")
+        return jnp.sum(vol * cot), (vol, stats)
+
+    with flax_two_pass_variance():
+        (_, (want, jstats)), (jdfeas, jdparams) = jax.value_and_grad(
+            jvolume, argnums=(0, 1), has_aux=True)([jnp.asarray(f) for f in feas],
+                                                   jvars["params"])
+
+    live = copy.deepcopy(port).train()
+    t = [torch.from_numpy(f).requires_grad_() for f in feas]
+    tp = [torch.from_numpy(p) for p in projs]
+    if mode == "adaptive":
+        got = build_cost_volume(t[0], t[1:], tp[0], tp[1:], torch.from_numpy(dv), live)
+    else:
+        got = variance_cost_volume(t[0], t[1:], tp[0], tp[1:], torch.from_numpy(dv))
+    (got * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=5e-5)
+    pairs = [(f"dfea{v}", t[v].grad, jdfeas[v]) for v in range(V + 1)]
+    if mode == "adaptive":
+        for j, blk in enumerate(("Conv3dBlock_0", "Conv3dBlock_1")):
+            tb = live.w_net[j]
+            jst = jstats[blk]["_NormAct_0"]["BatchNorm_0"]
+            np.testing.assert_allclose(tb.bn.running_mean.numpy(), np.asarray(jst["mean"]),
+                                       atol=5e-5, err_msg=blk)
+            np.testing.assert_allclose(tb.bn.running_var.numpy(), np.asarray(jst["var"]),
+                                       rtol=5e-5, err_msg=blk)
+            jp = jdparams[blk]
+            kernel = np.asarray(jp["Conv_0"]["kernel"]).transpose(4, 3, 0, 1, 2)
+            scale = max(np.abs(np.asarray(a)).max() for a in jax.tree_util.tree_leaves(jp))
+            block = [(f"{blk}/conv", tb.conv.weight.grad, kernel),
+                     (f"{blk}/bn.weight", tb.bn.weight.grad,
+                      jp["_NormAct_0"]["BatchNorm_0"]["scale"]),
+                     (f"{blk}/bn.bias", tb.bn.bias.grad, jp["_NormAct_0"]["BatchNorm_0"]["bias"])]
+            for name, g, jg in block:
+                np.testing.assert_allclose(g.numpy(), np.asarray(jg), atol=1e-4 * scale,
+                                           err_msg=name)
+    for name, g, jg in pairs:
+        jg = np.asarray(jg)
+        np.testing.assert_allclose(g.numpy(), jg, atol=1e-4 * np.abs(jg).max(), err_msg=name)
 
 
 def _jax_variance(rng, per_pixel, align_corners):

@@ -65,13 +65,34 @@ def test_importing_every_module_loads_no_jax():
 
 def test_every_module_is_covered():
     """The scans above walk the package, so a new module is covered; the
-    training slice's modules and the sampler kernel's are among them."""
+    training slices' modules, the sampler kernel's, the loaders and host IO
+    and the library losses are among them."""
     mods = {m for _, m in _modules()}
     assert {"damvsnet_tpu_torch.losses.crossview", "damvsnet_tpu_torch.losses.supervised",
             "damvsnet_tpu_torch.train.loop", "damvsnet_tpu_torch.train.state",
             "damvsnet_tpu_torch.train.schedule", "damvsnet_tpu_torch.train.metrics",
             "damvsnet_tpu_torch.data.common", "damvsnet_tpu_torch.cli.train",
-            "damvsnet_tpu_torch.ops.kernels.sweep_sampler"} <= mods
+            "damvsnet_tpu_torch.ops.kernels.sweep_sampler",
+            "damvsnet_tpu_torch.core.pfm", "damvsnet_tpu_torch.core.pairs",
+            "damvsnet_tpu_torch.core.cameras", "damvsnet_tpu_torch.data.dtu",
+            "damvsnet_tpu_torch.data.blendedmvs", "damvsnet_tpu_torch.data.edges",
+            "damvsnet_tpu_torch.losses.entropy", "damvsnet_tpu_torch.losses.unsupervised"} <= mods
+
+
+def test_package_imports_without_cv2_and_pil():
+    """A fresh interpreter in which cv2 and PIL cannot be imported (as on
+    the card's machine) imports every module of the port, the loaders
+    included."""
+    mods = [m for _, m in _modules()]
+    code = ("import importlib, sys\n"
+            "sys.modules['cv2'] = None; sys.modules['PIL'] = None\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "from damvsnet_tpu_torch.data import find_dataset_def\n"
+            "assert find_dataset_def('dtu_yao').__name__ == 'DTUTrainDataset'\n")
+    env = {**os.environ, "PYTHONPATH": str(PKG.parent)}
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(PKG.parent),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
 
 
 @pytest.mark.parametrize("entry", ["model", "runner", "train_step", "trainer", "cli",

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from damvsnet_tpu.ops import resize as jresize
@@ -116,6 +117,33 @@ def test_bilinear_sample_nonfinite_and_huge_is_zero(rng):
     finite = np.isfinite(px[0]) & np.isfinite(py[0])
     assert np.isnan(xla[0, ~finite]).all()
     np.testing.assert_array_equal(xla[0, finite], 0.0)
+
+
+@pytest.mark.parametrize("per_pixel", [False, True])
+def test_plane_sweep_warp_gradient(rng, per_pixel):
+    """The gradient of sum(warp * cot) with respect to the source features,
+    the depth hypotheses and both projections, against jax.grad in fp32:
+    only the features get one (the sampling coordinates are detached, as
+    JAX stops them); the depths' and the projections' are zero in both."""
+    ref_p, src_p = fused_projs(B, 2, H, W)
+    img = rng.standard_normal((B, H, W, C)).astype(np.float32)
+    if per_pixel:
+        dv = (4 + 4 * rng.random((B, D, H, W))).astype(np.float32)
+    else:
+        dv = np.linspace(4, 8, D, dtype=np.float32)[None]
+    cot = rng.standard_normal((B, D, H, W, C)).astype(np.float32)
+    args = (img, src_p, ref_p, dv)
+
+    want = jax.grad(lambda *a: jnp.sum(jwarp.plane_sweep_warp(*a) * cot),
+                    argnums=(0, 1, 2, 3))(*map(jnp.asarray, args))
+    inputs = [_t(a).requires_grad_() for a in args]
+    out = warp.plane_sweep_warp(*inputs)
+    got = torch.autograd.grad((out * _t(cot)).sum(), inputs, allow_unused=True,
+                              materialize_grads=True)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-5, atol=1e-5)
+    for name, g, jg in zip(("src_proj", "ref_proj", "depth_values"), got[1:], want[1:]):
+        np.testing.assert_array_equal(g.numpy(), 0.0, err_msg=name)
+        np.testing.assert_array_equal(np.asarray(jg), 0.0, err_msg=name)
 
 
 @pytest.mark.parametrize("ndepth", [8, 32])

@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from damvsnet_tpu.ops.pallas.probstats import prob_volume_stats_pallas
+from damvsnet_tpu.ops.regression import prob_volume_stats as jstats
 from damvsnet_tpu_torch.ops.kernels import probstats
 from damvsnet_tpu_torch.ops.regression import prob_volume_stats
 
@@ -43,6 +45,28 @@ def test_stats_match_pallas(rng, per_pixel):
         dc = np.abs(got["photometric_confidence"].numpy()
                     - np.asarray(want["photometric_confidence"]))
         assert int((dc > 1e-5).sum()) <= MAX_CONF_FLIPS
+
+
+def test_confidence_passes_no_gradient(rng):
+    """A loss on the photometric confidence gives the cost no gradient, in
+    both packages (both detach the confidence's input, as the reference
+    does); one on the depth does."""
+    cost = (3 * rng.standard_normal((1, 8, 4, 6))).astype(np.float32)
+    dv = np.linspace(4, 8, 8, dtype=np.float32)[None]
+
+    def jloss(c, key):
+        return jnp.sum(jstats(c, jnp.asarray(dv))[key] ** 2)
+
+    for key, zero in (("photometric_confidence", True), ("depth", False)):
+        jg = np.asarray(jax.grad(jloss)(jnp.asarray(cost), key))
+        t = torch.from_numpy(cost).requires_grad_()
+        out = prob_volume_stats(t, torch.from_numpy(dv))[key]
+        assert out.requires_grad != zero, key
+        g = (torch.autograd.grad((out ** 2).sum(), t)[0].numpy() if out.requires_grad
+             else np.zeros_like(cost))
+        assert (np.abs(jg).max() == 0) == zero, key
+        assert (np.abs(g).max() == 0) == zero, key
+        np.testing.assert_allclose(g, jg, rtol=1e-5, atol=1e-6, err_msg=key)
 
 
 def test_confidence_window_edges():

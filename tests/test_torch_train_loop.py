@@ -1,5 +1,7 @@
 """The port's Trainer, checkpoints, data loader and training CLI on the CPU
-(tiny cascade: ndepths (8, 8, 8), synthetic scenes at 32x32, N=3)."""
+(tiny cascade: ndepths (8, 8, 8), synthetic scenes at 32x32, N=3; the
+Trainer's tests train the fused configuration, the CLI's each one it
+builds, DTU's loader included on a fake tree)."""
 import functools
 import os
 
@@ -7,15 +9,17 @@ import numpy as np
 import pytest
 import torch
 
+from damvsnet_tpu.cli import train as jax_cli_train
 from damvsnet_tpu_torch import data as port_data
 from damvsnet_tpu_torch.cli import train as cli_train
-from damvsnet_tpu_torch.data import DataLoader, SyntheticDataset
+from damvsnet_tpu_torch.data import DataLoader, DTUTrainDataset, SyntheticDataset
 from damvsnet_tpu_torch.losses import cas_mvsnet_loss
 from damvsnet_tpu_torch.model import CascadeMVSNet
 from damvsnet_tpu_torch.train.loop import Trainer, batch_to_device, make_train_step
 from damvsnet_tpu_torch.train.schedule import make_optimizer
 from damvsnet_tpu_torch.train.state import (Checkpointer, TrainState, latest_checkpoint,
                                             restore_checkpoint)
+from test_data import fake_dtu  # noqa: F401  (the JAX data tests' DTU tree)
 
 torch.set_num_threads(1)
 
@@ -35,7 +39,7 @@ def _loader(length=4, shuffle=False):
 
 def _state(seed=0):
     torch.manual_seed(seed)
-    model = CascadeMVSNet(ndepths=(8, 8, 8), device="cpu")
+    model = CascadeMVSNet(ndepths=(8, 8, 8), device="cpu", fused_train=True)
     opt, sched = make_optimizer(model.parameters(), 1e-3, "10,12,14:2", iters_per_epoch=4)
     return TrainState(model, opt, sched)
 
@@ -190,35 +194,76 @@ def test_cli_trains_one_epoch_and_resumes(tiny_synthetic, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--agg_mode", "variance"], ["--use_fmt"], ["--profile_dir", "prof"],
-    ["--grad_method", "undetach"], ["--share_cr"], ["--dataset", "dtu_yao"],
+    ["--use_fmt"], ["--profile_dir", "prof"], ["--grad_method", "undetach"], ["--share_cr"],
 ])
 def test_cli_raises_on_what_the_port_lacks(tiny_synthetic, tmp_path, flags):
-    match = "ROADMAP Queue 1 item 10.1" if "variance" in flags else "ROADMAP"
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1[124]"):
         cli_train.main(_CLI + ["--epochs", "1", "--logdir", str(tmp_path)] + flags)
 
 
-@pytest.mark.parametrize("flags", [["--no_geo_fusion"], ["--cr_base_chs", "4,8,4"]])
-def test_cli_trains_the_variants(monkeypatch, capsys, tmp_path, flags):
-    """The fused training step runs the cascade without geo fusion, and with
-    other U-Net widths, unchanged: one step gives a finite loss and moves
-    the parameters."""
+def test_cli_defaults_follow_the_jax_cli():
+    """Every flag both CLIs take has the same default (the dataset
+    ``dtu_yao`` and no ``--fused_train`` among them)."""
+    ours = vars(cli_train.build_parser().parse_args([]))
+    theirs = vars(jax_cli_train.build_parser().parse_args([]))
+    shared = set(ours) & set(theirs)
+    assert {"dataset", "fused_train", "agg_mode", "ndepths", "numdepth"} <= shared
+    assert {k: ours[k] for k in shared} == {k: theirs[k] for k in shared}
+    assert ours["dataset"] == "dtu_yao" and ours["fused_train"] is False
+
+
+@pytest.mark.parametrize("flags", [
+    ["--no_geo_fusion"], ["--cr_base_chs", "4,8,4"], ["--agg_mode", "variance"],
+    ["--fused_train"], ["--dataset", "dtu_yao"],
+], ids=["no_geo_fusion", "cr_base_chs", "variance", "fused_train", "dtu_yao"])
+def test_cli_trains_the_variants(monkeypatch, capsys, request, tmp_path, flags):
+    """The CLI builds what the JAX CLI builds from the same flags (without
+    ``--fused_train`` the non-fused step on unclamped hypotheses, with it
+    the fused step on clamped ones), and each configuration trains: one
+    step gives a finite loss and moves the parameters. ``dtu_yao`` reads
+    the fake DTU tree, its list trimmed to one batch and its samples cut to
+    their top-left 64x96 (a crop from the origin keeps the cameras)."""
     monkeypatch.setitem(port_data._REGISTRY, "synthetic",
                         functools.partial(SyntheticDataset, height=32, width=32, length=2))
-    argv = _CLI + ["--epochs", "1", "--logdir", str(tmp_path)] + flags
+    argv = _CLI + ["--epochs", "1", "--logdir", str(tmp_path / "run")] + flags
+    if "dtu_yao" in flags:
+        root, listfile = request.getfixturevalue("fake_dtu")
+
+        class CroppedDTU(DTUTrainDataset):
+            def __getitem__(self, idx):
+                s = super().__getitem__(idx)
+                s["imgs"] = s["imgs"][:, :64, :96]
+                for k in ("depth", "mask"):
+                    s[k] = {st: a[:a.shape[0] * 64 // 512, :a.shape[1] * 96 // 640]
+                            for st, a in s[k].items()}
+                return s
+
+        def two_samples(*args, **kwargs):
+            ds = CroppedDTU(*args, **kwargs)
+            ds.metas = ds.metas[:2]
+            return ds
+        monkeypatch.setitem(port_data._REGISTRY, "dtu_yao", two_samples)
+        argv += ["--trainpath", str(root), "--trainlist", str(listfile)]
+    fused = "--fused_train" in flags
+    agg_mode = "variance" if "variance" in flags else "adaptive"
     torch.manual_seed(1)  # the CLI's --seed: the same initial weights
-    start = CascadeMVSNet(ndepths=(8, 8, 8), device="cpu",
+    start = CascadeMVSNet(ndepths=(8, 8, 8), device="cpu", agg_mode=agg_mode,
                           use_geo_fusion="--no_geo_fusion" not in flags,
                           cr_base_chs=(4, 8, 4) if "--cr_base_chs" in flags else (8, 8, 8))
     trainer = cli_train.main(argv)
     model = trainer.state.model
     assert trainer.state.step == 1
+    assert (model.fused_train, model.clamp_samples, model.agg_mode) == (fused, fused, agg_mode)
     assert hasattr(model, "GeoFeatureFusionNet") == ("--no_geo_fusion" not in flags)
     start_sd = start.state_dict()
     assert set(model.state_dict()) == set(start_sd)
     moved = [k for k, p in model.named_parameters() if not torch.equal(p.detach(), start_sd[k])]
     assert len(moved) > 0.9 * len(list(model.parameters()))
+    if agg_mode == "adaptive":  # the weight nets' BNs normalize with batch statistics
+        stats_moved = [k for k, v in model.state_dict().items()
+                       if k.startswith("DepthNet") and k.endswith("running_mean")
+                       and not torch.equal(v, start_sd[k])]
+        assert len(stats_moved) == (0 if fused else 6)
     done = [line for line in capsys.readouterr().out.splitlines()
             if line.startswith("epoch 0 done")]
     loss = float(done[0].split(" loss=")[1].split()[0])

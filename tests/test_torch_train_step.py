@@ -37,115 +37,24 @@ import numpy as np
 import pytest
 import torch
 
-import flax.linen.normalization as flax_norm
-import jax
-import jax.numpy as jnp
-
-from damvsnet_tpu.data.common import collate
-from damvsnet_tpu.data.synthetic import make_synthetic_sample
-from damvsnet_tpu.losses import cas_mvsnet_loss as jloss
-from damvsnet_tpu.model import CascadeMVSNet as JCascade
-from damvsnet_tpu_torch.losses import cas_mvsnet_loss
-from damvsnet_tpu_torch.model import CascadeMVSNet
-from damvsnet_tpu_torch.ops.kernels import fused_costvol
-from torch_helpers import port_named
+from torch_helpers import (assert_gradients_match, assert_running_statistics_match,
+                           jax_train_step, port_train_step, synthetic_train_batch)
 
 torch.set_num_threads(1)
 
 NDEPTHS = (8, 8, 8)
-SIZE = 32
 SCENES = (2, 3)
-WEIGHTS = "weights/bench_ckpt.npz"
-
-
-def _tree(flat, collection):
-    tree = {}
-    for key, v in flat.items():
-        coll, *path, leaf = key.split("/")
-        if coll != collection:
-            continue
-        node = tree
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = np.asarray(v, np.float32)
-    return tree
-
-
-def _batch():
-    batch = collate([make_synthetic_sample(SIZE, SIZE, 3, 16, seed=s) for s in SCENES])
-    return {k: batch[k] for k in ("imgs", "proj_matrices", "depth_values", "depth", "mask")}
-
-
-def _two_pass_batch_stats(compute_stats):
-    def stats(*args, **kwargs):
-        kwargs["use_fast_variance"] = False
-        return compute_stats(*args, **kwargs)
-    return stats
-
-
-def jax_step():
-    """The JAX step, with flax's BatchNorm variance two-pass:
-    (batch, params, stats, want)."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(flax_norm, "_compute_stats",
-                   _two_pass_batch_stats(flax_norm._compute_stats))
-        return _jax_step()
-
-
-def _jax_step():
-    batch = _batch()
-    jb = jax.tree_util.tree_map(jnp.asarray, batch)
-    with np.load(WEIGHTS) as npz:
-        flat = {k: npz[k] for k in npz.files}
-    params, stats = _tree(flat, "params"), _tree(flat, "batch_stats")
-    jmodel = JCascade(ndepths=NDEPTHS, fused_train=True, clamp_samples=True,
-                      sampler_opts={"interpret": True})
-
-    def loss_fn(params, stats):
-        out, mutated = jmodel.apply(
-            {"params": params, "batch_stats": stats}, jb["imgs"],
-            jb["proj_matrices"], jb["depth_values"], train=True,
-            mutable=["batch_stats"])
-        total, depth_loss, cpc = jloss(out, jb["imgs"], jb["proj_matrices"],
-                                       jb["depth"], jb["mask"], use_cpc=True)
-        return total, (depth_loss, cpc, mutated["batch_stats"])
-
-    (total, (depth_loss, cpc, new_stats)), grads = jax.jit(
-        jax.value_and_grad(loss_fn, has_aux=True))(params, stats)
-    want = {"losses": np.array([total, depth_loss, cpc], np.float32),
-            "grads": port_named(grads, stats),
-            "stats": port_named(params, new_stats)}
-    return batch, params, stats, want
-
-
-def port_step(batch, params, stats):
-    """The port's step on the same weights and inputs."""
-    model = CascadeMVSNet(ndepths=NDEPTHS, device="cpu")
-    model.load_state_dict({k: torch.from_numpy(v.copy()) for k, v in
-                           port_named(params, stats).items()})
-    before = {k: v.clone() for k, v in model.state_dict().items()}
-    tb = jax.tree_util.tree_map(lambda a: torch.from_numpy(np.asarray(a)), batch)
-    counts = (fused_costvol.fused_adaptive_cost_volume.launches,
-              fused_costvol.fused_adaptive_cost_volume_backward.launches)
-    model.train()
-    # oneDNN's CPU convolution backward corrupts the heap at these shapes
-    # (a segfault at stage 3); torch's own CPU convolutions are used instead
-    with torch.backends.mkldnn.flags(enabled=False):
-        out = model(tb["imgs"], tb["proj_matrices"], tb["depth_values"])
-        losses = cas_mvsnet_loss(out, tb["imgs"], tb["proj_matrices"], tb["depth"],
-                                 tb["mask"], use_cpc=True)
-        losses[0].backward()
-    assert counts == (fused_costvol.fused_adaptive_cost_volume.launches,
-                      fused_costvol.fused_adaptive_cost_volume_backward.launches)
-    return {"losses": np.array([float(x.detach()) for x in losses], np.float32),
-            "model": model, "before": before}
+CONFIG = {"fused_train": True, "clamp_samples": True}
 
 
 @pytest.fixture(scope="module")
 def both():
-    """The JAX step (run once) and the port's, on the same weights."""
-    batch, params, stats, want = jax_step()
-    return want, port_step(batch, params, stats)
+    """The JAX step (run once, the fused kernels in interpret mode) and the
+    port's, on the same weights."""
+    batch = synthetic_train_batch(SCENES)
+    params, stats, want = jax_train_step(batch, NDEPTHS, sampler_opts={"interpret": True},
+                                         **CONFIG)
+    return want, port_train_step(batch, params, stats, NDEPTHS, **CONFIG)
 
 
 def test_losses_match(both):
@@ -155,20 +64,7 @@ def test_losses_match(both):
 
 
 def test_every_gradient_matches(both):
-    want, got = both
-    bad = []
-    named = dict(got["model"].named_parameters())
-    assert set(named) <= set(want["grads"])
-    for name, p in named.items():
-        assert p.grad is not None, name
-        g = p.grad.numpy()
-        assert np.isfinite(g).all(), name
-        ref = want["grads"][name]
-        tol = 1e-3 * np.abs(ref).max() + 1e-7
-        err = np.abs(g - ref).max()
-        if err > tol:
-            bad.append(f"{name}: {err:.3g} > {tol:.3g}")
-    assert not bad, bad
+    assert_gradients_match(*both)
 
 
 def test_weight_net_gradients_are_not_vacuous(both):
@@ -179,13 +75,7 @@ def test_weight_net_gradients_are_not_vacuous(both):
 
 
 def test_running_statistics_match(both):
-    want, got = both
-    sd = got["model"].state_dict()
-    names = [k for k in sd if k.endswith(("running_mean", "running_var"))]
-    assert names
-    for name in names:
-        np.testing.assert_allclose(sd[name].numpy(), want["stats"][name],
-                                   rtol=1e-5, atol=1e-5, err_msg=name)
+    assert_running_statistics_match(*both)
 
 
 def test_weight_net_statistics_do_not_move(both):

@@ -1,8 +1,13 @@
-"""Inputs shared by the PyTorch port's tests (a helper module, not a test
-file: pytest collects nothing here)."""
+"""Inputs and steps shared by the PyTorch port's tests (a helper module,
+not a test file: pytest collects nothing here)."""
+import contextlib
+
 import numpy as np
+import pytest
 
 from conftest import make_rig
+
+TRAIN_WEIGHTS = "weights/bench_ckpt.npz"
 
 
 def fused_projs(batch, num_views, height, width, seed=0):
@@ -19,11 +24,12 @@ def fused_projs(batch, num_views, height, width, seed=0):
     return fused
 
 
-def port_named(params, batch_stats):
+def port_named(params, batch_stats, agg_mode="adaptive"):
     """Flax variable trees (``params`` may be a gradient tree of the same
-    structure) -> {the port's state_dict name: numpy array}, through the
-    port's weight bridge ``state_dict_from_flax``. JAX is imported here,
-    not at the top: the card's test run imports this module without it."""
+    structure) of a model with this aggregation -> {the port's state_dict
+    name: numpy array}, through the port's weight bridge
+    ``state_dict_from_flax``. JAX is imported here, not at the top: the
+    card's test run imports this module without it."""
     import jax
     from damvsnet_tpu_torch.utils.weights import state_dict_from_flax
 
@@ -32,7 +38,7 @@ def port_named(params, batch_stats):
         for kp, v in jax.tree_util.tree_flatten_with_path(tree)[0]:
             key = "/".join(str(getattr(k, "key", k)) for k in kp)
             flat[f"{coll}/{key}"] = np.asarray(v, np.float32)
-    return {k: v.numpy() for k, v in state_dict_from_flax(flat).items()}
+    return {k: v.numpy() for k, v in state_dict_from_flax(flat, agg_mode).items()}
 
 
 def cascade_batch(seed, batch=1, num_views=3, height=32, width=32, ndepth=16):
@@ -82,3 +88,148 @@ def unflat(flat):
             node = node.setdefault(p, {})
         node[leaf] = jnp.asarray(v)
     return tree
+
+
+# ---- the whole training step, JAX against the port (fp32, CPU) ----
+
+
+@contextlib.contextmanager
+def flax_two_pass_variance():
+    """flax's BatchNorm batch variance computed two-pass, as torch's and the
+    port's is: flax's default one-pass E[x^2] - E[x]^2 loses digits to
+    cancellation, enough to move a step's losses by more than 1e-5."""
+    import flax.linen.normalization as flax_norm
+
+    compute_stats = flax_norm._compute_stats
+
+    def two_pass(*args, **kwargs):
+        kwargs["use_fast_variance"] = False
+        return compute_stats(*args, **kwargs)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(flax_norm, "_compute_stats", two_pass)
+        yield
+
+
+def synthetic_train_batch(scenes, size=32, nviews=3, d0=16):
+    """The JAX package's synthetic scenes, collated: the model's and the
+    loss's arrays."""
+    from damvsnet_tpu.data.common import collate
+    from damvsnet_tpu.data.synthetic import make_synthetic_sample
+
+    batch = collate([make_synthetic_sample(size, size, nviews, d0, seed=s) for s in scenes])
+    return {k: batch[k] for k in ("imgs", "proj_matrices", "depth_values", "depth", "mask")}
+
+
+def checkpoint_trees(agg_mode="adaptive"):
+    """The trained checkpoint as flax (params, batch_stats) trees of a model
+    with this aggregation (a variance model has no weight nets)."""
+    with np.load(TRAIN_WEIGHTS) as npz:
+        flat = {k: npz[k] for k in npz.files
+                if agg_mode == "adaptive" or "/agg_weight_stage" not in k}
+    trees = {"params": {}, "batch_stats": {}}
+    for key, v in flat.items():
+        coll, *path, leaf = key.split("/")
+        node = trees[coll]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.asarray(v, np.float32)
+    return trees["params"], trees["batch_stats"]
+
+
+def jax_train_step(batch, ndepths, **config):
+    """``jax.value_and_grad`` of ``cas_mvsnet_loss(use_cpc=True)`` under
+    ``train=True, mutable=["batch_stats"]`` for ``CascadeMVSNet(ndepths,
+    **config)`` on the trained checkpoint, with flax's batch variance
+    two-pass: (params, stats, {"losses": [total, depth, cpc], "grads",
+    "stats": the updated statistics and the params, by port name})."""
+    import jax
+    import jax.numpy as jnp
+    from damvsnet_tpu.losses import cas_mvsnet_loss
+    from damvsnet_tpu.model import CascadeMVSNet
+
+    agg_mode = config.get("agg_mode", "adaptive")
+    jb = jax.tree_util.tree_map(jnp.asarray, batch)
+    params, stats = checkpoint_trees(agg_mode)
+    model = CascadeMVSNet(ndepths=ndepths, **config)
+
+    def loss_fn(params, stats):
+        out, mutated = model.apply(
+            {"params": params, "batch_stats": stats}, jb["imgs"], jb["proj_matrices"],
+            jb["depth_values"], train=True, mutable=["batch_stats"])
+        total, depth_loss, cpc = cas_mvsnet_loss(out, jb["imgs"], jb["proj_matrices"],
+                                                 jb["depth"], jb["mask"], use_cpc=True)
+        return total, (depth_loss, cpc, mutated["batch_stats"])
+
+    with flax_two_pass_variance():
+        (total, (depth_loss, cpc, new_stats)), grads = jax.jit(
+            jax.value_and_grad(loss_fn, has_aux=True))(params, stats)
+    want = {"losses": np.array([total, depth_loss, cpc], np.float32),
+            "grads": port_named(grads, stats, agg_mode),
+            "stats": port_named(params, new_stats, agg_mode)}
+    return params, stats, want
+
+
+def port_train_step(batch, params, stats, ndepths, **config):
+    """The port's step on the same weights and inputs: ``model.train()``,
+    the forward, the loss, ``backward()`` (on CPU tensors, with no kernel
+    launched). Returns {"losses", "model", "before": the state_dict before
+    the step}."""
+    import torch
+    from damvsnet_tpu_torch.losses import cas_mvsnet_loss
+    from damvsnet_tpu_torch.model import CascadeMVSNet
+    from damvsnet_tpu_torch.ops.kernels import fused_costvol, probstats, sweep_sampler
+
+    model = CascadeMVSNet(ndepths=ndepths, device="cpu", **config)
+    model.load_state_dict({k: torch.from_numpy(v.copy()) for k, v in
+                           port_named(params, stats, model.agg_mode).items()})
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    tb = {k: ({s: torch.from_numpy(a) for s, a in v.items()} if isinstance(v, dict)
+              else torch.from_numpy(v)) for k, v in batch.items()}
+    counters = (fused_costvol.fused_adaptive_cost_volume,
+                fused_costvol.fused_adaptive_cost_volume_backward,
+                probstats.prob_volume_stats_fused, sweep_sampler.plane_sweep_sample,
+                sweep_sampler.plane_sweep_variance)
+    counts = [fn.launches for fn in counters]
+    model.train()
+    # oneDNN's CPU convolution backward corrupts the heap at these shapes
+    # (a segfault at stage 3); torch's own CPU convolutions are used instead
+    with torch.backends.mkldnn.flags(enabled=False):
+        out = model(tb["imgs"], tb["proj_matrices"], tb["depth_values"])
+        losses = cas_mvsnet_loss(out, tb["imgs"], tb["proj_matrices"], tb["depth"],
+                                 tb["mask"], use_cpc=True)
+        losses[0].backward()
+    assert counts == [fn.launches for fn in counters]
+    return {"losses": np.array([float(x.detach()) for x in losses], np.float32),
+            "model": model, "before": before}
+
+
+def assert_gradients_match(want, got, group=lambda name: name):
+    """Every parameter's gradient finite and within 1e-3 of the largest JAX
+    entry of its group (+1e-7), matched by name through the bridge. A
+    tensor is its own group unless ``group`` maps names together."""
+    scale = {}
+    for name, ref in want["grads"].items():
+        scale[group(name)] = max(scale.get(group(name), 0.0), float(np.abs(ref).max()))
+    bad = []
+    named = dict(got["model"].named_parameters())
+    assert set(named) <= set(want["grads"])
+    for name, p in named.items():
+        assert p.grad is not None, name
+        g = p.grad.numpy()
+        assert np.isfinite(g).all(), name
+        tol = 1e-3 * scale[group(name)] + 1e-7
+        err = np.abs(g - want["grads"][name]).max()
+        if err > tol:
+            bad.append(f"{name}: {err:.3g} > {tol:.3g}")
+    assert not bad, bad
+
+
+def assert_running_statistics_match(want, got):
+    """Every running mean and variance at 1e-5."""
+    sd = got["model"].state_dict()
+    names = [k for k in sd if k.endswith(("running_mean", "running_var"))]
+    assert names
+    for name in names:
+        np.testing.assert_allclose(sd[name].numpy(), want["stats"][name],
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
