@@ -11,7 +11,9 @@ without printing its result line:
   3. K1, the fused adaptive cost volume, against its plain PyTorch version
      at each stage's full-width serving shape, fp32 (TF32 off) and bf16;
      timed with CUDA events around the wrapper and, device time alone
-     (kernel_ms), with torch.profiler;
+     (kernel_ms), with torch.profiler; then at a small shape with 17
+     source views (two launches, 8 + 9 views, summed) against the plain
+     version, forward and, through autograd (K3), the features' gradients;
   4. K2, the probability-volume statistics, likewise, on an fp32 cost and
      on a bf16 cost (the bf16 cascade hands K2 the regularizer's bf16
      output, which the kernel reads as it is);
@@ -41,7 +43,9 @@ without printing its result line:
      with CUDA events and, device time alone, with torch.profiler; then
      K4's variance entry at the same shapes against the plain variance cost
      volume, timed beside the route it replaced (the sampler once per view
-     and the eager fp32 sums);
+     and the eager fp32 sums); then the variance entry at a small shape
+     with 17 source views (past one launch's 16: the sampler once per
+     view under the same variance) against the plain version;
   9. the variance-aggregation serving cascade (as phase 5, agg_mode
      "variance", the trained weights less the weight nets): 1 warm-up and
      3 timed requests through DepthRunner with every launch counter set to
@@ -62,7 +66,19 @@ without printing its result line:
      step on the CPU (fp32, TF32 off; oneDNN off on the CPU, as the CPU
      training tests run), adaptive and variance, at B=1, N=3, 64x64,
      ndepths 8/8/8: the CPU step is the one the CPU tests hold against the
-     JAX package.
+     JAX package;
+ 13. the test CLI (python -m damvsnet_tpu_torch.cli.test) on a synthetic
+     scene it first writes in the eval layout (1152x864, 7 views, each a
+     reference with the other 6 in pair.txt, num_depth 192): general_eval,
+     N=5, ndepths 64/32/8, bf16, the trained weights, the consistency
+     filter on the card, with every launch counter set to 0 just before and
+     read just after (K1 and K2 3 times a view, K3 and K4 never). The
+     image files go through a numpy stand-in for the codec module
+     (core/imageio.py), printed as such: the card's machine has no PIL or
+     cv2. Then every depth file against its stage's size, every confidence
+     in [0, 1], the device fusion on the card against the same on the CPU,
+     and the fused cloud scored against the scene's ground truth by the
+     DTU protocol (a record, not a gate).
 
 Times come from CUDA events after warm-up (kernels) or from the host clock
 around synchronised work (requests, steps). Each bound is the larger of
@@ -72,10 +88,15 @@ The last two lines are the kernels' JSON summary and the device line.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12
@@ -85,6 +106,18 @@ NDEPTHS = (64, 32, 8)
 STAGE_C = (32, 16, 8)
 REQUESTS = 3
 SERVING_WEIGHTS = "weights/bench_ckpt.npz"
+# phases 3 and 8 past one launch's 16 source views (ops/kernels/_common.py)
+MANY_VIEWS, MANY_H, MANY_W = 17, 128, 160
+# phase 13: the synthetic scene in the eval layout and the CLI's flags
+# (scripts/test_dtu.sh's, with the consistency filter); the photo-mask
+# triplet is scripts/e2e_synthetic.py's (these weights' final confidence
+# sits near 0.5 on the synthetic scenes, under the DTU default's 0.9);
+# the DTU protocol's units: 100 mm per world unit, as e2e_synthetic.py
+EVAL_VIEWS, EVAL_CONF, MM_PER_UNIT = 7, "0.1,0.15,0.5", 100.0
+# the device fusion on the card against the CPU: share of pixels whose
+# vote differs, and depth_avg's relative error where both accept
+FUSION_MASK_SHARE, FUSION_DEPTH_RTOL = 1e-3, 1e-5
+CONF_ROUNDING = 1e-5  # a confidence may pass 1 by fp32 rounding of its sum
 # K1 runs on the scene's FeatureNet maps with the trained weights.
 # Tolerance on (kernel - plain) / (1 + |plain|), elementwise. fp32: both
 # evaluate the projective geometry in fp32 in another order, a few ulps of
@@ -349,6 +382,71 @@ def phase_k2(sample, dev):
                   f"K2 stage {stage_idx + 1} {tag}: {flips} confidence flips")
             rows.append(row)
     return rows
+
+
+def many_view_features(model, dev):
+    """A synthetic scene of MANY_VIEWS + 1 views at MANY_H x MANY_W: per
+    stage the fused projections (reference, sources), a uniform sweep of
+    the stage's depth count and the FeatureNet's NHWC maps [N, 1, h, w, C]
+    in fp32 and bf16."""
+    import torch
+    from damvsnet_tpu_torch.data.synthetic import make_synthetic_sample
+    sample = make_synthetic_sample(height=MANY_H, width=MANY_W, nviews=MANY_VIEWS + 1,
+                                   ndepths=D0, seed=SEED, with_gt=False)
+    lo, hi = float(sample["depth_values"][0]), float(sample["depth_values"][-1])
+    with torch.no_grad():
+        feats = {tag: stage_features(sample, model, dev, dtype)
+                 for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16))}
+    return [(*stage_geometry(sample, s + 1, dev),
+             torch.linspace(lo, hi, NDEPTHS[s], device=dev)[None],
+             {tag: f[s] for tag, f in feats.items()}) for s in range(3)]
+
+
+def rel_l2(got, want):
+    import torch
+    return float(torch.linalg.vector_norm(got.float() - want) /
+                 max(float(torch.linalg.vector_norm(want)), 1e-30))
+
+
+def phase_k1_many_views(model, dev):
+    """K1 with MANY_VIEWS source views (one launch takes 16): the wrapper
+    splits them into two launches and sums; forward against the plain
+    version at K1_TOL, and the features' gradients through autograd (K3
+    per launch) against autograd of the plain version in fp32 at K3_TOL's
+    relative L2."""
+    import torch
+    from damvsnet_tpu_torch.nn.aggweight import fold_aggweight
+    from damvsnet_tpu_torch.ops.kernels import fused_costvol as K
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for stage_idx, (ref_p, src_p, dv, feats) in enumerate(many_view_features(model, dev)):
+        with torch.no_grad():
+            wts = fold_aggweight(model.DepthNet.weight_net[stage_idx])
+        for tag in ("fp32", "bf16"):
+            feas = [f for f in feats[tag]]  # [1, h, w, C] each
+            leaves = [f.clone().requires_grad_() for f in feas]
+            n0 = (K.fused_adaptive_cost_volume.launches,
+                  K.fused_adaptive_cost_volume_backward.launches)
+            got = K.fused_adaptive_cost_volume(leaves[0], leaves[1:], ref_p, src_p, dv, *wts)
+            cot = torch.randn(got.shape, generator=gen, device=dev)
+            (got.float() * cot).sum().backward()
+            launched = (K.fused_adaptive_cost_volume.launches - n0[0],
+                        K.fused_adaptive_cost_volume_backward.launches - n0[1])
+            ref = [f.float().clone().requires_grad_() for f in feas]
+            want = K.fused_adaptive_cost_volume_plain(ref[0], ref[1:], ref_p, src_p, dv, *wts)
+            (want * cot).sum().backward()
+            diff = (got.detach().float() - want.detach()).abs()
+            rel = float((diff / (1 + want.detach().abs())).max())
+            l2 = max(rel_l2(a.grad, r.grad) for a, r in zip(leaves, ref))
+            row = {"stage": stage_idx + 1, "dtype": tag, "views": MANY_VIEWS,
+                   "shape": list(got.shape), "launches": list(launched),
+                   "max_abs": float(diff.max()), "max_rel": rel, "tol_rel": K1_TOL[tag],
+                   "grad_rel_l2": l2, "tol_grad_rel_l2": K3_TOL[tag]["l2"]}
+            print("K1 past 16 views", json.dumps(row), flush=True)
+            check(launched == (2, 2), f"K1 with {MANY_VIEWS} views: launches {launched}")
+            check(rel <= K1_TOL[tag], f"K1 {MANY_VIEWS} views stage {stage_idx + 1} {tag}: "
+                  f"max rel {rel} > {K1_TOL[tag]}")
+            check(l2 <= K3_TOL[tag]["l2"], f"K1/K3 {MANY_VIEWS} views stage {stage_idx + 1} "
+                  f"{tag}: gradient relative L2 {l2} > {K3_TOL[tag]['l2']}")
 
 
 def serving_batch(sample):
@@ -911,6 +1009,37 @@ def phase_k4_variance(sample, model, dev):
     return rows
 
 
+def phase_k4_variance_many_views(model, dev):
+    """K4's variance entry with MANY_VIEWS source views: past one launch's
+    16 it runs the same variance over K4's sampler, one launch per view;
+    against the plain variance cost volume in fp32 at K4_TOL."""
+    import torch
+    from damvsnet_tpu_torch.ops.costvol import variance_cost_volume
+    from damvsnet_tpu_torch.ops.kernels.sweep_sampler import (plane_sweep_sample,
+                                                              plane_sweep_variance)
+    from damvsnet_tpu_torch.ops.warp import plane_sweep_warp
+    for stage_idx, (ref_p, src_p, dv, feats) in enumerate(many_view_features(model, dev)):
+        for tag in ("fp32", "bf16"):
+            ref, srcs = feats[tag][0], list(feats[tag][1:])
+            n0 = (plane_sweep_sample.launches, plane_sweep_variance.launches)
+            with torch.no_grad():
+                got = plane_sweep_variance(ref, srcs, ref_p, src_p, dv)
+                launched = (plane_sweep_sample.launches - n0[0],
+                            plane_sweep_variance.launches - n0[1])
+                want = variance_cost_volume(ref.float(), [x.float() for x in srcs], ref_p,
+                                            src_p, dv, warp=plane_sweep_warp)
+            diff = (got.float() - want).abs()
+            rel = float((diff / (1 + want.abs())).max())
+            row = {"stage": stage_idx + 1, "dtype": tag, "views": MANY_VIEWS,
+                   "shape": list(got.shape), "launches": list(launched),
+                   "max_abs": float(diff.max()), "max_rel": rel, "tol_rel": K4_TOL[tag]}
+            print("K4 variance past 16 views", json.dumps(row), flush=True)
+            check(launched == (MANY_VIEWS, 0),
+                  f"K4 variance with {MANY_VIEWS} views: launches {launched}")
+            check(rel <= K4_TOL[tag], f"K4 variance {MANY_VIEWS} views stage {stage_idx + 1} "
+                  f"{tag}: max rel {rel} > {K4_TOL[tag]}")
+
+
 def phase_variance(sample, model, dev):
     """The variance cascade: timed requests with the launch counters, then
     the depth against the plain versions, with and without geo fusion."""
@@ -952,6 +1081,186 @@ def phase_variance(sample, model, dev):
     return launches, float(np.mean(times))
 
 
+@contextlib.contextmanager
+def numpy_image_codec():
+    """Phase 13's image files through numpy: core/imageio.py's read_rgb and
+    write_rgb swapped for raw arrays (np.save) under the same .jpg names;
+    nothing else is replaced."""
+    import numpy as np
+    from damvsnet_tpu_torch.core import imageio
+
+    def read_rgb(path):
+        return np.load(path)
+
+    def write_rgb(path, rgb, quality=None, chroma_444=False):
+        with open(path, "wb") as f:
+            np.save(f, np.asarray(rgb, np.uint8))
+
+    saved = imageio.read_rgb, imageio.write_rgb
+    imageio.read_rgb, imageio.write_rgb = read_rgb, write_rgb
+    print("image codec: numpy stand-in (the card's machine has no PIL or cv2)", flush=True)
+    try:
+        yield
+    finally:
+        imageio.read_rgb, imageio.write_rgb = saved
+
+
+@contextlib.contextmanager
+def fusion_devices(seen):
+    """Records the device of every reference view's consistency pass
+    (infer/fusion_device.py::consistency_masks) into ``seen``."""
+    from damvsnet_tpu_torch.infer import fusion_device
+    inner = fusion_device.consistency_masks
+
+    def recorded(depth_ref, *args, **kwargs):
+        seen.append(depth_ref.device.type)
+        return inner(depth_ref, *args, **kwargs)
+
+    fusion_device.consistency_masks = recorded
+    try:
+        yield
+    finally:
+        fusion_device.consistency_masks = inner
+
+
+def check_depth_files(scene_dir):
+    """Every depth file finite at its stage's size; every confidence file
+    (the lower stages' upsampled) at full size and in [0, 1] (up to
+    CONF_ROUNDING)."""
+    import numpy as np
+    from damvsnet_tpu_torch.core.pfm import read_pfm
+    sizes = {"": (HEIGHT, WIDTH), "_stage2": (HEIGHT // 2, WIDTH // 2),
+             "_stage1": (HEIGHT // 4, WIDTH // 4)}
+    for v in range(EVAL_VIEWS):
+        for sfx, hw in sizes.items():
+            depth = read_pfm(os.path.join(scene_dir, f"depth_est/{v:08d}{sfx}.pfm"))[0]
+            conf = read_pfm(os.path.join(scene_dir, f"confidence/{v:08d}{sfx}.pfm"))[0]
+            check(depth.shape == hw, f"view {v} depth{sfx} shape {depth.shape}, expected {hw}")
+            check(bool(np.isfinite(depth).all()), f"view {v} depth{sfx}: non-finite")
+            check(conf.shape == (HEIGHT, WIDTH), f"view {v} confidence{sfx} shape {conf.shape}")
+            check(bool(((conf >= 0) & (conf <= 1 + CONF_ROUNDING)).all()),
+                  f"view {v} confidence{sfx} outside [0, 1]: {conf.min()} .. {conf.max()}")
+
+
+def fusion_card_vs_cpu(datapath, outdir, scan, dev):
+    """fuse_reference_view of every reference view on the card and on the
+    CPU, from the written files: the votes' share of differing pixels and
+    depth_avg's relative error where both accept, each against its limit,
+    and the time of the votes per scene on each device."""
+    import numpy as np
+    import torch
+    from damvsnet_tpu_torch.core.pairs import read_pair_file
+    from damvsnet_tpu_torch.core.pfm import read_pfm
+    from damvsnet_tpu_torch.infer.fusion_device import fuse_reference_view
+    from damvsnet_tpu_torch.infer.fusion_dypcd import read_camera_parameters
+    folder = os.path.join(outdir, scan)
+    cams = {v: read_camera_parameters(os.path.join(folder, f"cams/{v:08d}_cam.txt"))
+            for v in range(EVAL_VIEWS)}
+    depths = {v: read_pfm(os.path.join(folder, f"depth_est/{v:08d}.pfm"))[0]
+              for v in range(EVAL_VIEWS)}
+    ms = {"cuda": 0.0, "cpu": 0.0}
+    share = rel = 0.0
+    for ref, srcs in read_pair_file(os.path.join(datapath, scan, "pair.txt")):
+        args = (depths[ref], *cams[ref], np.stack([depths[v] for v in srcs]),
+                np.stack([cams[v][0] for v in srcs]), np.stack([cams[v][1] for v in srcs]))
+        out = {}
+        for name in ("cuda", "cpu"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = fuse_reference_view(*args, device=name if name == "cpu" else dev)
+            ms[name] += (time.perf_counter() - t0) * 1e3
+        (mask_g, depth_g), (mask_c, depth_c) = out["cuda"], out["cpu"]
+        share = max(share, float((mask_g != mask_c).mean()))
+        both = mask_g & mask_c
+        if both.any():
+            rel = max(rel, float((np.abs(depth_g[both] - depth_c[both])
+                                  / np.abs(depth_c[both])).max()))
+    return {"votes_ms_per_scene": ms, "mask_differ_share": share, "tol_share": FUSION_MASK_SHARE,
+            "depth_avg_max_rel": rel, "tol_rel": FUSION_DEPTH_RTOL}
+
+
+def phase_test_cli(dev):
+    """Phase 13: the test CLI end to end on the card. Returns ({counter:
+    launches}, the summary it prints)."""
+    import numpy as np
+    import torch
+    from damvsnet_tpu_torch.cli import test as cli_test
+    from damvsnet_tpu_torch.core.ply import read_ply
+    from damvsnet_tpu_torch.data.synthetic import export_synthetic_scene
+    from damvsnet_tpu_torch.eval.dtu_eval import evaluate_scan
+    from damvsnet_tpu_torch.infer.fusion_device import consistency_filter
+
+    scan = "scan_synth"
+    with tempfile.TemporaryDirectory() as tmp, numpy_image_codec():
+        datapath, outdir = os.path.join(tmp, "data"), os.path.join(tmp, "outputs")
+        t0 = time.perf_counter()
+        export_synthetic_scene(datapath, scan=scan, height=HEIGHT, width=WIDTH,
+                               nviews=EVAL_VIEWS, seed=SEED, num_depth=D0)
+        export_s = time.perf_counter() - t0
+        testlist = os.path.join(tmp, "list.txt")
+        with open(testlist, "w") as f:
+            f.write(f"{scan}\n")
+        argv = ["--dataset", "general_eval", "--testpath", datapath, "--testlist", testlist,
+                "--outdir", outdir, "--num_view", str(NVIEWS), "--numdepth", str(D0),
+                "--max_h", str(HEIGHT), "--max_w", str(WIDTH),
+                "--ndepths", ",".join(map(str, NDEPTHS)), "--loadckpt", SERVING_WEIGHTS,
+                "--filter_method", "consistency", "--conf", EVAL_CONF]
+        print("test CLI argv", json.dumps(argv[argv.index("--num_view"):]), flush=True)
+        seen, log = [], io.StringIO()
+        reset_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with fusion_devices(seen), contextlib.redirect_stdout(log):
+            runner = cli_test.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = read_counters()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(log.getvalue(), end="", flush=True)
+        check_launches("test CLI", launches, {"fused_adaptive_cost_volume": 3,
+                                              "prob_volume_stats_fused": 3}, EVAL_VIEWS)
+        check(runner.model.compute_dtype == torch.bfloat16, "the test CLI did not serve in bf16")
+        check(seen == [torch.device(dev).type] * EVAL_VIEWS,
+              f"the consistency passes ran on {seen}")
+        m = re.search(r"([0-9.]+)s/view steady", log.getvalue())
+        check(m is not None, "no steady s/view line from the CLI")
+        w = re.search(r"write ([0-9.]+)s total", log.getvalue())
+        check_depth_files(os.path.join(outdir, scan))
+
+        xyz, rgb = read_ply(os.path.join(outdir, f"{scan}.ply"))
+        check(len(xyz) > 0 and bool(np.isfinite(xyz).all()), f"the PLY has {len(xyz)} points")
+        gt = np.load(os.path.join(datapath, scan, "gt_points.npy"))
+        t0 = time.perf_counter()
+        scores = evaluate_scan(xyz.astype(np.float64) * MM_PER_UNIT,
+                               gt.astype(np.float64) * MM_PER_UNIT, dst=0.2, max_dist=20.0)
+        eval_s = time.perf_counter() - t0
+        check(all(math.isfinite(scores[k]) for k in ("acc", "comp", "overall")),
+              f"non-finite DTU scores {scores}")
+
+        t0 = time.perf_counter()
+        consistency_filter(datapath, outdir, [scan], conf=tuple(map(float, EVAL_CONF.split(","))),
+                           device=dev, log_fn=lambda *a: None)
+        torch.cuda.synchronize()
+        filter_ms = (time.perf_counter() - t0) * 1e3
+        fusion = fusion_card_vs_cpu(datapath, outdir, scan, dev)
+        fusion["filter_ms_per_scene_card"] = filter_ms
+        print("test CLI fusion, card vs CPU", json.dumps(fusion), flush=True)
+        check(fusion["mask_differ_share"] <= FUSION_MASK_SHARE,
+              f"fusion votes differ on {fusion['mask_differ_share']} of pixels")
+        check(fusion["depth_avg_max_rel"] <= FUSION_DEPTH_RTOL,
+              f"fused depth relative error {fusion['depth_avg_max_rel']}")
+    summary = {"views": EVAL_VIEWS, "s_per_view_steady": float(m.group(1)),
+               "write_s_total": float(w.group(1)) if w else None, "cli_s": cli_s,
+               "export_s": export_s, "eval_s": eval_s, "peak_mem_gib": peak_gib,
+               "points": int(len(xyz)), "launches": launches,
+               "fusion_filter_ms_per_scene_card": filter_ms,
+               "fusion_votes_ms_per_scene": fusion["votes_ms_per_scene"],
+               "dtu_mm": {k: scores[k] for k in ("acc", "comp", "overall", "n_data", "n_stl")}}
+    print("test CLI", json.dumps(summary), flush=True)
+    return launches, summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -987,6 +1296,8 @@ def main():
     with torch.inference_mode():
         k1 = phase_k1(sample, model, dev)
         k2 = phase_k2(sample, dev)
+    phase_k1_many_views(model, dev)
+    torch.cuda.empty_cache()
     launches, request_ms = phase_cascade(sample, model, dev)
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1006,6 +1317,7 @@ def main():
     with torch.inference_mode():
         k4 = phase_k4(sample, model, dev)
         k4_variance = phase_k4_variance(sample, model, dev)
+        phase_k4_variance_many_views(model, dev)
     var_launches, var_request_ms = phase_variance(sample, model, dev)
     del model
     torch.cuda.empty_cache()
@@ -1014,6 +1326,8 @@ def main():
     var_train_launches, var_train_ms, var_train_peak = phase_train_nonfused(
         dev, "training_variance", "variance", VARIANCE_STEPS)
     phase_nonfused_vs_cpu()
+    torch.cuda.empty_cache()
+    cli_launches, cli = phase_test_cli(dev)
 
     def summary(name, rows, source, replaces, counter):
         """bf16 rows summed over the stages (one request's or one step's
@@ -1022,7 +1336,8 @@ def main():
         by_path = {"serving": launches[counter], "training": train_launches[counter],
                    "serving_variance": var_launches[counter],
                    "training_nonfused": nonfused_launches[counter],
-                   "training_variance": var_train_launches[counter]}
+                   "training_variance": var_train_launches[counter],
+                "test_cli": cli_launches[counter]}
         library = [r.get("library_ms") for r in main_rows]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1065,6 +1380,14 @@ def main():
           f"(512x640, B=4, N=5, bf16, {smi})", flush=True)
     print(f"variance training: {var_train_ms:.3f} ms per step, peak {var_train_peak:.2f} GiB "
           f"(512x640, B=4, N=5, bf16, {smi})", flush=True)
+    print(f"test CLI: {cli['s_per_view_steady']:.3f} s/view steady, write "
+          f"{cli['write_s_total']} s for {EVAL_VIEWS} views, fusion "
+          f"{cli['fusion_filter_ms_per_scene_card']:.1f} ms per scene on the card (votes "
+          f"{cli['fusion_votes_ms_per_scene']['cuda']:.1f} ms card, "
+          f"{cli['fusion_votes_ms_per_scene']['cpu']:.1f} ms CPU), peak "
+          f"{cli['peak_mem_gib']:.2f} GiB, {cli['points']} points, acc "
+          f"{cli['dtu_mm']['acc']:.4f} / comp {cli['dtu_mm']['comp']:.4f} / overall "
+          f"{cli['dtu_mm']['overall']:.4f} mm (1152x864, N=5, bf16, {smi})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

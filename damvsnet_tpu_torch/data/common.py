@@ -35,21 +35,24 @@ def collate(samples: Sequence[dict]) -> dict:
 
 
 class DataLoader:
-    """Shuffling, batching (the last partial batch is dropped: fixed
-    shapes) and threaded prefetch of up to ``PREFETCH`` batches."""
+    """Shuffling, batching and threaded prefetch of up to ``PREFETCH``
+    batches. ``drop_last`` (training: fixed shapes) drops the last partial
+    batch; the depth writer keeps it."""
 
     PREFETCH = 2
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
-                 seed: int = 0, num_workers: int = 4):
+                 seed: int = 0, num_workers: int = 4, drop_last: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.num_workers = num_workers
+        self.drop_last = drop_last
 
     def __len__(self):
-        return len(self.dataset) // self.batch_size
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _indices(self, epoch: int):
         idx = np.arange(len(self.dataset))

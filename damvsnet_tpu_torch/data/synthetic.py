@@ -1,15 +1,21 @@
 """Procedural multi-view scene generator (numpy only).
 
-A copy of ``make_synthetic_sample`` and what it needs from
-damvsnet_tpu/data/synthetic.py: a slanted textured world plane rendered
-from an N-camera rig with exact analytic depth, so every image is
-geometrically consistent. Output dict layout matches the DTU loader.
+A copy of ``make_synthetic_sample``, ``export_synthetic_scene`` and what
+they need from damvsnet_tpu/data/synthetic.py: a slanted textured world
+plane rendered from an N-camera rig with exact analytic depth, so every
+image is geometrically consistent. Output dict layout matches the DTU
+loader; the exported scene is in the eval layout ``general_eval`` reads.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
-from ..core.cameras import stage_intrinsics, stage_proj_matrices
+from ..core import imageio
+from ..core.cameras import stage_intrinsics, stage_proj_matrices, write_cam_file
+from ..core.pairs import write_pair_file
+from ..core.pfm import write_pfm
 
 
 def _texture(wx, wy):
@@ -120,6 +126,50 @@ def make_synthetic_sample(height=128, width=160, nviews=3, ndepths=48,
         sample["depth"] = pyr
         sample["mask"] = {k: np.ones_like(v) for k, v in pyr.items()}
     return sample
+
+
+def export_synthetic_scene(datapath, scan="scan_synth", height=128, width=160,
+                           nviews=5, seed=10_000, num_depth=192):
+    """Write one synthetic scene in the MVSNet eval layout
+    (images/{v:08d}.jpg, cams/{v:08d}_cam.txt with full-resolution K and a
+    4-field depth line, pair.txt: every view a reference with all others as
+    sources) plus ground truth: gt_depths/{v:08d}.pfm and gt_points.npy,
+    every view's depth backprojected to world points (the synthetic
+    stand-in for a DTU STL cloud). The same files as
+    damvsnet_tpu/data/synthetic.py:147-211 writes. Returns the scene
+    directory."""
+    scene = render_synthetic_views(height, width, nviews, seed)
+    base = os.path.join(datapath, scan)
+    for sub in ("images", "cams", "gt_depths"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+
+    gt_points = []
+    for v in range(nviews):
+        img = (np.clip(scene["imgs"][v], 0, 1) * 255).astype(np.uint8)
+        # q100 with 4:4:4 chroma: 4:2:0 blur would be matching noise that
+        # measures the codec, not the network
+        imageio.write_rgb(os.path.join(base, f"images/{v:08d}.jpg"), img,
+                          quality=100, chroma_444=True)
+        # per-view depth range, as DTU's cam files have
+        dmin = float(scene["depths"][v].min()) * 0.9
+        dmax = float(scene["depths"][v].max()) * 1.1
+        interval = (dmax - dmin) / num_depth
+        write_cam_file(os.path.join(base, f"cams/{v:08d}_cam.txt"),
+                       scene["intr"], scene["exts"][v], dmin, interval,
+                       num_depth=num_depth, depth_max=dmax)
+        write_pfm(os.path.join(base, f"gt_depths/{v:08d}.pfm"), scene["depths"][v])
+        h, w = scene["depths"][v].shape
+        ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        pix = np.stack([xs, ys, np.ones_like(xs)], -1).reshape(-1, 3)
+        kinv = np.linalg.inv(scene["intr"].astype(np.float64))
+        cam = (pix @ kinv.T) * scene["depths"][v].reshape(-1, 1)
+        ext = scene["exts"][v].astype(np.float64)
+        gt_points.append((cam - ext[:3, 3]) @ ext[:3, :3])  # R^T (x - t)
+    np.save(os.path.join(base, "gt_points.npy"),
+            np.concatenate(gt_points, 0).astype(np.float32))
+    write_pair_file(os.path.join(base, "pair.txt"),
+                    [(v, [s for s in range(nviews) if s != v]) for v in range(nviews)])
+    return base
 
 
 class SyntheticDataset:

@@ -1,1 +1,1 @@
-from .runner import DepthRunner
+from .runner import DepthRunner, save_scene_depth

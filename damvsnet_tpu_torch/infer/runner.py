@@ -1,28 +1,43 @@
-"""Depth inference runner (counterpart of damvsnet_tpu/infer/runner.py).
+"""Depth inference runner and depth-file writer (counterpart of
+damvsnet_tpu/infer/runner.py).
 
 ``DepthRunner`` takes a batch of numpy arrays, runs the cascade under
 ``torch.inference_mode()`` and returns, as numpy, only what a depth-map
 writer needs: final depth and confidence, and each lower stage's depth and
-confidence.
+confidence. ``save_scene_depth`` runs it over a dataset and writes the
+reference's files.
 
 The JAX runner's safety net — redoing a batch with the XLA sampler when the
 banded TPU kernel reports dropped taps — has no counterpart: the port's
 fused cost-volume kernel gathers every tap, so nothing can overflow, and
-the ``sampler_overflow`` key is gone. Writing reference-format files
-(``save_scene_depth``) belongs to the CLI slice.
+the ``sampler_overflow`` key is gone.
 """
 from __future__ import annotations
+
+import os
+import time
 
 import numpy as np
 import torch
 
+from ..core import imageio
+from ..core.cameras import write_cam_file
+from ..core.pfm import write_pfm
+from ..data.common import DataLoader
 from ..utils.device import resolve_device
 
 
 class DepthRunner:
+    """``time_dispatch`` sums the forward calls (the host's work and the
+    launches it enqueues), ``time_fetch`` the copies of the outputs to the
+    host (which wait for the device): the split that tells host time from
+    device time."""
+
     def __init__(self, model, device=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.time_dispatch = 0.0
+        self.time_fetch = 0.0
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
@@ -31,6 +46,7 @@ class DepthRunner:
         """batch: imgs [B, N, H, W, 3], proj_matrices {stage: [B, N, 2, 4, 4]},
         depth_values [B, D0] (other keys are ignored)."""
         with torch.inference_mode():
+            t0 = time.perf_counter()
             out = self.model(
                 self._tensor(batch["imgs"]),
                 {k: self._tensor(v) for k, v in batch["proj_matrices"].items()},
@@ -41,10 +57,100 @@ class DepthRunner:
                 s = f"stage{i}"
                 keep[s] = {"depth": out[s]["depth"],
                            "photometric_confidence": out[s]["photometric_confidence"]}
-            return _to_numpy(keep)
+            t1 = time.perf_counter()
+            keep = _to_numpy(keep)
+            self.time_dispatch += t1 - t0
+            self.time_fetch += time.perf_counter() - t1
+            return keep
 
 
 def _to_numpy(tree):
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
     return tree.float().cpu().numpy()
+
+
+def upsample_nearest(img: np.ndarray, out_hw) -> np.ndarray:
+    """Nearest-neighbour resize of [h, w] to ``out_hw`` by cv2's
+    INTER_NEAREST index rule, src = floor(dst * (1 / (dst_size / src_size)))
+    clipped to the last row or column: the same pixels as
+    ``cv2.resize(img, (W, H), interpolation=cv2.INTER_NEAREST)`` at any
+    ratio."""
+    def index(n_out, n_in):
+        inv_scale = 1.0 / (n_out / n_in)
+        return np.minimum(np.floor(np.arange(n_out) * inv_scale).astype(np.int64), n_in - 1)
+
+    return img[index(out_hw[0], img.shape[0])[:, None], index(out_hw[1], img.shape[1])]
+
+
+def save_scene_depth(runner: DepthRunner, dataset, outdir: str,
+                     batch_size: int = 1, log_fn=print):
+    """Run depth inference over a dataset and write, per reference view,
+    under outdir/scene/: depth_est/{v}.pfm (and _stage1/_stage2),
+    confidence/{v}.pfm (the lower stages' confidences nearest-upsampled to
+    full resolution), cams/{v}_cam.txt and images/{v}.jpg (the reference's
+    test_uni.py:207-290, damvsnet_tpu/infer/runner.py:105-183).
+
+    Returns (count, total_time, batch_times). batch_times[0] includes the
+    first call's warm-up (kernel builds, cuDNN's setup), so the steady
+    rate is ``sum(batch_times[1:]) / (count - n0)`` with n0 the measured
+    size of batch 0 (partial batches are kept).
+    """
+    loader = DataLoader(dataset, batch_size=batch_size, shuffle=False,
+                        drop_last=False, num_workers=2)
+    num_stage = len(runner.model.ndepths)
+    batch_times = []
+    count = 0
+    first_batch_n = 0
+    write_time = 0.0
+    for batch in loader.iter_epoch(0):
+        t0 = time.time()
+        outputs = runner({k: v for k, v in batch.items() if k != "filename"})
+        batch_times.append(time.time() - t0)
+        t_w = time.time()
+        if not count:
+            first_batch_n = batch["imgs"].shape[0]
+        count += batch["imgs"].shape[0]
+        cams = batch["proj_matrices"][f"stage{num_stage}"]
+        for i, filename in enumerate(batch["filename"]):
+            depth_est = outputs["depth"][i]
+            conf = outputs["photometric_confidence"][i]
+            h, w = conf.shape
+
+            paths = {
+                "depth": filename.format("depth_est", ".pfm"),
+                "conf": filename.format("confidence", ".pfm"),
+                "cam": filename.format("cams", "_cam.txt"),
+                "img": filename.format("images", ".jpg"),
+            }
+            stage_outs = {}
+            for s in range(1, num_stage):
+                paths[f"depth{s}"] = filename.format("depth_est", f"_stage{s}.pfm")
+                paths[f"conf{s}"] = filename.format("confidence", f"_stage{s}.pfm")
+                stage_outs[s] = (
+                    outputs[f"stage{s}"]["depth"][i],
+                    upsample_nearest(outputs[f"stage{s}"]["photometric_confidence"][i],
+                                     (h, w)))
+            for p in paths.values():
+                os.makedirs(os.path.join(outdir, os.path.dirname(p)), exist_ok=True)
+            write_pfm(os.path.join(outdir, paths["depth"]), depth_est.astype(np.float32))
+            write_pfm(os.path.join(outdir, paths["conf"]), conf.astype(np.float32))
+            for s, (dep_s, conf_s) in stage_outs.items():
+                write_pfm(os.path.join(outdir, paths[f"depth{s}"]), dep_s.astype(np.float32))
+                write_pfm(os.path.join(outdir, paths[f"conf{s}"]), conf_s.astype(np.float32))
+            cam = cams[i, 0]
+            write_cam_file(os.path.join(outdir, paths["cam"]),
+                           cam[1, :3, :3], cam[0], 0.0, 0.0)
+            img = np.clip(batch["imgs"][i, 0] * 255, 0, 255).astype(np.uint8)
+            imageio.write_rgb(os.path.join(outdir, paths["img"]), img)
+        write_time += time.time() - t_w
+    total_time = sum(batch_times)
+    if count:
+        steady = (sum(batch_times[1:]) / max(1, count - first_batch_n)
+                  if len(batch_times) > 1 else total_time / count)
+        log_fn(f"inference: {count} views, {steady:.3f}s/view steady "
+               f"(first batch {batch_times[0]:.1f}s incl. warm-up; "
+               f"dispatch {runner.time_dispatch:.1f}s, "
+               f"fetch {runner.time_fetch:.1f}s, "
+               f"write {write_time:.1f}s total)")
+    return count, total_time, batch_times

@@ -15,6 +15,11 @@ reference and source features and the folded weight net (w1, b1, w2, b2);
 depth hypotheses and geometry get none, as under the reference's no_grad
 sampling grid (module.py:297-300), and neither does the 1/(N-1) constant.
 
+One launch takes at most 16 source views (``_common.MAX_VIEWS``). Past
+that the wrapper splits the views into launches of at most 16, each a K1
+call (under autograd, with K3 as its backward) over its V_k views, and sums
+their volumes scaled by V_k / V in fp32, cast once.
+
 Layout: features NHWC [B, H, W, C] (free views of ``channels_last``
 feature maps), volume [B, D, H, W, C] contiguous — its
 ``permute(0, 4, 1, 2, 3)`` is a ``channels_last_3d`` view for Conv3d.
@@ -27,7 +32,7 @@ from typing import Sequence
 import torch
 
 from ..costvol import build_cost_volume
-from ._common import DTYPE_CODES, ViewLaunch, check_launch, prepare_views
+from ._common import DTYPE_CODES, MAX_VIEWS, ViewLaunch, check_launch, prepare_views, view_chunks
 from .build import load
 
 
@@ -170,10 +175,21 @@ def fused_adaptive_cost_volume(ref_fea: torch.Tensor,
     depth_values [B,D] or [B,D,H,W] fp32; (w1 [C], b1, w2, b2) from
     ``nn.aggweight.fold_aggweight``. CPU tensors run the plain version
     (differentiable by torch autograd); CUDA tensors launch K1, with K3 as
-    the backward when a feature or weight requires grad, or raise."""
+    the backward when a feature or weight requires grad, or raise. More
+    than 16 source views take one launch per chunk of at most 16."""
     if ref_fea.device.type == "cpu":
         return fused_adaptive_cost_volume_plain(
             ref_fea, src_feas, ref_proj, src_projs, depth_values, w1, b1, w2, b2)
+    v = len(src_feas)
+    if v > MAX_VIEWS:
+        vol = None
+        for part in view_chunks(v):
+            k = len(src_feas[part])
+            vol_k = fused_adaptive_cost_volume(ref_fea, src_feas[part], ref_proj,
+                                               src_projs[part], depth_values,
+                                               w1, b1, w2, b2).float() * (k / v)
+            vol = vol_k if vol is None else vol + vol_k
+        return vol.to(ref_fea.dtype)
     L = prepare_views("fused_adaptive_cost_volume", ref_fea, src_feas, ref_proj,
                       src_projs, depth_values)
     params = _params(w1, b1, w2, b2, L)
@@ -194,7 +210,8 @@ def fused_adaptive_cost_volume_backward(grad_out: torch.Tensor,
     to (ref_fea, src_feas, w1, b1, w2, b2), returned as (dref, [dsrc_v],
     dw1 [C], db1, dw2, db2); the features' gradients in their dtype, the
     weight net's in fp32. CPU tensors run the plain version; CUDA tensors
-    launch K3 or raise."""
+    launch K3 or raise (also past 16 source views: training reaches K3
+    through ``fused_adaptive_cost_volume``'s autograd, which splits them)."""
     if ref_fea.device.type == "cpu":
         return fused_adaptive_cost_volume_backward_plain(
             grad_out, ref_fea, src_feas, ref_proj, src_projs, depth_values,

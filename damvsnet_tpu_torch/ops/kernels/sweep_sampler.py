@@ -14,7 +14,8 @@ K4 replaces damvsnet_tpu/ops/pallas/sweep_sampler.py::sample_bilinear_band
     63-77). The sums are fp32 over the unrounded samples, the variance
     rounded once. Its plain version is ``ops.costvol.variance_cost_volume``
     over ``plane_sweep_warp``. The serving cascade's variance mode calls it
-    once per stage.
+    once per stage. Past 16 source views (one launch's most) it computes
+    the same variance over the sampler entry, one launch per view.
 
 The kernel gathers every tap, so unlike the TPU kernel it has no window
 budget and returns no overflow flag. Like the TPU kernel it is
@@ -31,7 +32,7 @@ import torch
 
 from ..costvol import variance_cost_volume
 from ..warp import plane_sweep_warp
-from ._common import DTYPE_CODES, check_launch, prepare_views
+from ._common import DTYPE_CODES, MAX_VIEWS, check_launch, prepare_views
 from .build import load
 
 
@@ -86,22 +87,33 @@ def plane_sweep_sample(src_fea: torch.Tensor, src_proj: torch.Tensor,
     return out
 
 
+def _sample_unrounded(src_fea, src_proj, ref_proj, depth_values, align_corners):
+    """K4's sampler on the source's exact fp32 upcast: fp32 samples, so the
+    variance's sums see them unrounded, as the variance entry's do."""
+    return plane_sweep_sample(src_fea.float(), src_proj, ref_proj, depth_values,
+                              align_corners)
+
+
 def plane_sweep_variance(ref_fea: torch.Tensor, src_feas: Sequence[torch.Tensor],
                          ref_proj: torch.Tensor, src_projs: Sequence[torch.Tensor],
                          depth_values: torch.Tensor,
                          align_corners: bool = False) -> torch.Tensor:
     """The variance cost volume [B,D,H,W,C] in the feature dtype.
 
-    ref_fea [B,H,W,C]; src_feas: V (1..16) tensors [B,H,W,C] of its dtype
-    (fp32 or bf16); projs fused [B,4,4]; depth_values [B,D] or [B,D,H,W]
-    fp32. CPU tensors run the plain version; CUDA tensors launch K4's
-    variance entry once for all views, or raise (also when autograd would
-    need a gradient: K4 has none)."""
+    ref_fea [B,H,W,C]; src_feas: V tensors [B,H,W,C] of its dtype (fp32
+    or bf16); projs fused [B,4,4]; depth_values [B,D] or [B,D,H,W] fp32.
+    CPU tensors run the plain version; CUDA tensors launch K4's variance
+    entry once for all views (past 16 views, K4's sampler once per view
+    under the same variance), or raise (also when autograd would need a
+    gradient: K4 has none)."""
     if ref_fea.device.type == "cpu":
         return variance_cost_volume(ref_fea, src_feas, ref_proj, src_projs, depth_values,
                                     warp=plane_sweep_warp, align_corners=align_corners)
     name = "plane_sweep_variance"
     _no_autograd(name, ref_fea, *src_feas, ref_proj, *src_projs, depth_values)
+    if len(src_feas) > MAX_VIEWS:
+        return variance_cost_volume(ref_fea, src_feas, ref_proj, src_projs, depth_values,
+                                    warp=_sample_unrounded, align_corners=align_corners)
     L = prepare_views(name, ref_fea, src_feas, ref_proj, src_projs, depth_values,
                       align_corners)
     out = torch.empty((L.b, L.d, L.h, L.w, L.c), dtype=ref_fea.dtype, device=L.dev)

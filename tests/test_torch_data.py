@@ -17,8 +17,8 @@ from damvsnet_tpu.data.common import color_jitter as jjitter
 from damvsnet_tpu.data.common import motion_blur as jblur
 from damvsnet_tpu.data.edges import sobel_edges as jsobel
 from damvsnet_tpu_torch.core import cameras, pairs, pfm
-from damvsnet_tpu_torch.data import (BlendedMVSDataset, DTUTrainDataset, SyntheticDataset,
-                                     find_dataset_def)
+from damvsnet_tpu_torch.data import (BlendedMVSDataset, DTUTrainDataset, GeneralEvalDataset,
+                                     SyntheticDataset, TnTEvalDataset, find_dataset_def)
 from damvsnet_tpu_torch.data.common import color_jitter, motion_blur
 from damvsnet_tpu_torch.data.edges import sobel_edges
 from test_data import fake_blendedmvs, fake_dtu  # noqa: F401  (the JAX tests' trees)
@@ -39,9 +39,8 @@ def test_registry():
     assert find_dataset_def("dtu") is DTUTrainDataset
     assert find_dataset_def("blendedmvs") is BlendedMVSDataset
     assert find_dataset_def("synthetic") is SyntheticDataset
-    for name in ("general_eval", "tnt_eval_trans"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-            find_dataset_def(name)
+    assert find_dataset_def("general_eval") is GeneralEvalDataset
+    assert find_dataset_def("tnt_eval_trans") is TnTEvalDataset
 
 
 @pytest.mark.parametrize("shape", [(7, 9), (7, 9, 3)])

@@ -6,12 +6,15 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import damvsnet_tpu_torch
+from damvsnet_tpu_torch.cli import test as cli_test
 from damvsnet_tpu_torch.cli import train as cli_train
 from damvsnet_tpu_torch.infer import DepthRunner
+from damvsnet_tpu_torch.infer.fusion_device import fuse_reference_view
 from damvsnet_tpu_torch.model import CascadeMVSNet
 from damvsnet_tpu_torch.train.loop import Trainer, make_train_step
 from damvsnet_tpu_torch.train.state import TrainState
@@ -65,8 +68,9 @@ def test_importing_every_module_loads_no_jax():
 
 def test_every_module_is_covered():
     """The scans above walk the package, so a new module is covered; the
-    training slices' modules, the sampler kernel's, the loaders and host IO
-    and the library losses are among them."""
+    training slices' modules, the sampler kernel's, the loaders and host IO,
+    the library losses and the test CLI's slice (eval loaders, codec, PLY,
+    depth writer, fusion, native library, evaluation, CLIs) are among them."""
     mods = {m for _, m in _modules()}
     assert {"damvsnet_tpu_torch.losses.crossview", "damvsnet_tpu_torch.losses.supervised",
             "damvsnet_tpu_torch.train.loop", "damvsnet_tpu_torch.train.state",
@@ -76,7 +80,15 @@ def test_every_module_is_covered():
             "damvsnet_tpu_torch.core.pfm", "damvsnet_tpu_torch.core.pairs",
             "damvsnet_tpu_torch.core.cameras", "damvsnet_tpu_torch.data.dtu",
             "damvsnet_tpu_torch.data.blendedmvs", "damvsnet_tpu_torch.data.edges",
-            "damvsnet_tpu_torch.losses.entropy", "damvsnet_tpu_torch.losses.unsupervised"} <= mods
+            "damvsnet_tpu_torch.losses.entropy", "damvsnet_tpu_torch.losses.unsupervised",
+            "damvsnet_tpu_torch.core.imageio", "damvsnet_tpu_torch.core.ply",
+            "damvsnet_tpu_torch.data.general_eval", "damvsnet_tpu_torch.data.tnt_eval",
+            "damvsnet_tpu_torch.infer.runner", "damvsnet_tpu_torch.infer.tank_config",
+            "damvsnet_tpu_torch.infer.fusion_dypcd", "damvsnet_tpu_torch.infer.fusion_pcd",
+            "damvsnet_tpu_torch.infer.fusion_device", "damvsnet_tpu_torch.infer.gipuma_bridge",
+            "damvsnet_tpu_torch.native_ext", "damvsnet_tpu_torch.eval.dtu_eval",
+            "damvsnet_tpu_torch.cli.test", "damvsnet_tpu_torch.cli.eval_dtu",
+            "damvsnet_tpu_torch.cli.colmap2mvsnet"} <= mods
 
 
 def test_package_imports_without_cv2_and_pil():
@@ -88,7 +100,9 @@ def test_package_imports_without_cv2_and_pil():
             "sys.modules['cv2'] = None; sys.modules['PIL'] = None\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "from damvsnet_tpu_torch.data import find_dataset_def\n"
-            "assert find_dataset_def('dtu_yao').__name__ == 'DTUTrainDataset'\n")
+            "assert find_dataset_def('dtu_yao').__name__ == 'DTUTrainDataset'\n"
+            "assert find_dataset_def('general_eval').__name__ == 'GeneralEvalDataset'\n"
+            "assert find_dataset_def('tnt_eval_trans').__name__ == 'TnTEvalDataset'\n")
     env = {**os.environ, "PYTHONPATH": str(PKG.parent)}
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(PKG.parent),
                          capture_output=True, text=True, timeout=300)
@@ -96,7 +110,7 @@ def test_package_imports_without_cv2_and_pil():
 
 
 @pytest.mark.parametrize("entry", ["model", "runner", "train_step", "trainer", "cli",
-                                   "variance_model"])
+                                   "variance_model", "test_cli", "fusion"])
 def test_entry_points_raise_without_cuda(monkeypatch, entry, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -112,5 +126,10 @@ def test_entry_points_raise_without_cuda(monkeypatch, entry, tmp_path):
             Trainer(TrainState(model, opt), str(tmp_path))
         elif entry == "cli":
             cli_train.main(["--logdir", str(tmp_path), "--epochs", "1"])
+        elif entry == "test_cli":
+            cli_test.main(["--testpath", str(tmp_path), "--testlist", str(tmp_path / "list")])
+        elif entry == "fusion":
+            z = np.zeros((1, 4, 4), np.float32)
+            fuse_reference_view(z[0], np.eye(3), np.eye(4), z, np.eye(3)[None], np.eye(4)[None])
         else:
             CascadeMVSNet(ndepths=(8, 8, 8), agg_mode="variance")

@@ -475,12 +475,55 @@ def test_sweep_variance_rejects_bad_input(dev):
                                  projs[0], projs[1:], dv)
         with pytest.raises(ValueError):  # the views' dtypes differ
             plane_sweep_variance(feas[0], [feas[1].bfloat16(), feas[2]], projs[0], projs[1:], dv)
-        with pytest.raises(ValueError):  # 17 source views
-            plane_sweep_variance(feas[0], feas[1:2] * 17, projs[0], projs[1:2] * 17, dv)
         with pytest.raises(ValueError):  # the depths on another device
             plane_sweep_variance(feas[0], feas[1:], projs[0], projs[1:], dv.cpu())
     with pytest.raises(RuntimeError, match="inference-only"):
         plane_sweep_variance(feas[0].clone().requires_grad_(), feas[1:], projs[0], projs[1:], dv)
+
+
+@pytest.mark.parametrize("views", [17, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_past_max_views(dev, views, dtype):
+    """More source views than one launch takes (MAX_VIEWS = 16): K1 splits
+    them into even launches of at most 16 (17: 8 + 9), forward and, through
+    autograd, K3; K4's variance entry runs the variance over its sampler,
+    one launch per view. Each against its plain version (the variance in
+    fp32 on the same inputs), at K1's limits above."""
+    b, h, w, c, d = 1, 24, 40, 16, 6
+    projs = _rig(dev, b, views + 1, h, w, baseline=0.02)
+    feas = _smooth_features(dev, dtype, b, h, w, c, views + 1)
+    dv = _sweep(dev, "narrow", b, d, h, w)
+    wts = _weights(dev, c)
+    rel = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    chunks = -(-views // _common.MAX_VIEWS)
+
+    k1, k3 = (fused_costvol.fused_adaptive_cost_volume,
+              fused_costvol.fused_adaptive_cost_volume_backward)
+    n0 = (k1.launches, k3.launches)
+    leaves = [f.clone().requires_grad_() for f in feas]
+    got = k1(leaves[0], leaves[1:], projs[0], projs[1:], dv, *wts)
+    cot = got.detach().float().sin()
+    (got.float() * cot).sum().backward()
+    assert (k1.launches, k3.launches) == (n0[0] + chunks, n0[1] + chunks)
+    ref = [f.float().clone().requires_grad_() for f in feas]
+    want = fused_costvol.fused_adaptive_cost_volume_plain(ref[0], ref[1:], projs[0], projs[1:],
+                                                          dv, *wts)
+    (want * cot).sum().backward()
+    assert got.dtype == dtype
+    assert bool(((got.float() - want).abs() <= 1e-4 + rel * want.abs()).all())
+    for a, r in zip(leaves, ref):
+        d_ = a.grad.float() - r.grad
+        assert float(torch.linalg.vector_norm(d_)) <= (2e-3 + rel) * float(
+            torch.linalg.vector_norm(r.grad))
+
+    n0 = (plane_sweep_sample.launches, plane_sweep_variance.launches)
+    with torch.no_grad():
+        got = plane_sweep_variance(feas[0], feas[1:], projs[0], projs[1:], dv)
+    assert (plane_sweep_sample.launches, plane_sweep_variance.launches) == (n0[0] + views, n0[1])
+    want = variance_cost_volume(feas[0].float(), [f.float() for f in feas[1:]], projs[0],
+                                projs[1:], dv)
+    assert got.dtype == dtype
+    assert bool(((got.float() - want).abs() <= 1e-4 + rel * want.abs()).all())
 
 
 @pytest.mark.parametrize("d", [8, 32, 48, 64])
