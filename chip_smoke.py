@@ -78,7 +78,33 @@ without printing its result line:
      cv2. Then every depth file against its stage's size, every confidence
      in [0, 1], the device fusion on the card against the same on the CPU,
      and the fused cloud scored against the scene's ground truth by the
-     DTU protocol (a record, not a gate).
+     DTU protocol (a record, not a gate);
+ 14. FMT serving: phase 5's request with ``use_fmt`` (the trained weights
+     and a seeded FMT pathway, printed as such): 1 warm-up and 3 timed
+     requests with every launch counter set to 0 just before and read just
+     after (K1 and K2 3 times a request, K3 and K4 never); the depth against
+     the plain versions in bf16 and, with TF32 off, in fp32 (bf16: at the
+     larger of phase 5's limit and 1.5 times the route's own move under
+     one-ulp changes of the camera matrices, see BF16_FLOOR_FACTOR); the FMT
+     pathway's own device time and kernel launches (torch.profiler) beside
+     the request's;
+ 15. variant training: phase 7's step with ``use_fmt`` and
+     ``grad_method="undetach"`` (``fused_train``, the clamp on, as the CLI
+     builds it; the trained weights and a seeded FMT pathway): 1 warm and 2
+     timed steps with the counters (K1 and K3 3 times a step, K2 never);
+     one batch's loss and gradients on the kernels against the plain
+     versions in fp32 with TF32 off; the same step detached, whose stage-1
+     gradients must differ;
+ 16. GeoReg / refine / U-Net serving (``reg_mode="georeg"``, ``refine``,
+     ``arch_mode="unet"``; the trained geo fusion and weight nets, the
+     FeatureNet, GeoRegNet2d and RefineNet seeded): 1 warm-up and 3 timed
+     requests with the counters (K1 and K2 3 times a request); ``depth``
+     and ``refined_depth`` against the plain versions in fp32 (TF32 off)
+     at phase 5's limit, and their gap in bf16 beside the one-ulp floor (a
+     record); the peak memory.
+
+``share_cr`` builds in neither package (one regularizer cannot take the
+stages' three widths), so no phase runs it.
 
 Times come from CUDA events after warm-up (kernels) or from the host clock
 around synchronised work (requests, steps). Each bound is the larger of
@@ -140,6 +166,16 @@ K4_TOL = {"fp32": 2e-3, "bf16": 2.0 ** -8 + 2e-3}
 K2_TOL = {"prob_volume": 1e-6, "depth": 1e-4, "variance": 1e-4}
 K2_MAX_FLIP_SHARE = 1e-4
 DEPTH_TOL_SHARE = 0.002  # p999 |depth - plain depth| <= 0.2 % of the range
+# The bf16 depth's own sensitivity: how far the plain route's bf16 depth
+# moves when every camera-matrix entry moves by one fp32 ulp (up or down,
+# seeded), a geometry difference of the size the kernels and the plain
+# versions have at every stage (they evaluate the projective geometry in
+# another order). scripts/bf16_sensitivity_torch.py measured the
+# kernels-vs-plain gap at about this floor on the trained model and with a
+# seeded FMT pathway, whose floor is above DEPTH_TOL_SHARE's 0.0176: phase
+# 14 holds its bf16 gap to the larger of the two limits, the floor taken
+# BF16_FLOOR_FACTOR times.
+BF16_FLOOR_FACTOR = 1.5
 # training shapes (scripts/bench_train.py:48)
 TRAIN_H, TRAIN_W, TRAIN_B, TRAIN_STEPS = 512, 640, 4, 3
 # K3 against autograd of the plain version, per feature-gradient tensor:
@@ -171,6 +207,9 @@ STEP_GRAD_L2 = 1e-2
 # the non-fused steps: timed steps (phase 10 adaptive, phase 11 variance),
 # and phase 12's small shape, held to STEP_LOSS_RTOL and STEP_GRAD_L2
 NONFUSED_STEPS, VARIANCE_STEPS = 3, 2
+# phase 15: timed variant steps; the undetached handoff must move stage 1's
+# U-Net gradient by more than this relative L2 against the detached step's
+VARIANT_STEPS, UNDETACH_MIN_CHANGE = 2, 1e-3
 SMALL_H, SMALL_W, SMALL_NVIEWS, SMALL_D0, SMALL_NDEPTHS = 64, 64, 3, 16, (8, 8, 8)
 # name keys of the kernels in profiler traces; the template argument after
 # the dtype is C, which names the stage (C = 32 / 16 / 8 at stages 1 / 2 / 3)
@@ -482,6 +521,22 @@ def depth_parity(runner, model, batch, rng, bf16_depth):
     return parity
 
 
+def bf16_floor(runner, model, batch):
+    """p999 |d depth| of the plain route in bf16 between the batch and the
+    batch with every camera-matrix entry moved by one fp32 ulp, up or down
+    (seeded). Leaves the model on the kernels."""
+    import numpy as np
+    model.plain = True
+    base = runner(batch)["depth"]
+    rs = np.random.default_rng(0)
+    moved = dict(batch, proj_matrices={
+        k: (v * (1.0 + 2.0 ** -23 * rs.choice([-1.0, 1.0], v.shape[1:]))).astype(np.float32)
+        for k, v in batch["proj_matrices"].items()})
+    diff = np.abs(runner(moved)["depth"] - base)
+    model.plain = False
+    return float(np.quantile(diff, 0.999))
+
+
 def kernel_counters():
     """Every kernel wrapper, K1-K4 (K4's sampler and variance entries): each
     path sets all of their launch counters to 0 just before it runs and
@@ -679,8 +734,9 @@ def grads_of_one_step(model, batch, plain):
     return float(total.detach()), grads
 
 
-def timed_training(dev, path, steps, **config):
-    """A bf16 model of ``config`` on the trained weights, Adam under the
+def timed_training(dev, path, steps, seeded=(), **config):
+    """A bf16 model of ``config`` on the trained weights (the modules named
+    in ``seeded`` from a seeded init, ``load_bench_weights``), Adam under the
     warmup schedule, make_train_step at phase 7's full width: 1 warm step,
     then ``steps`` timed ones on their own batches with every launch
     counter set to 0 just before and read just after. Prints the path's
@@ -694,9 +750,10 @@ def timed_training(dev, path, steps, **config):
     from damvsnet_tpu_torch.train.state import TrainState
     from damvsnet_tpu_torch.utils.weights import load_bench_weights
 
+    torch.manual_seed(SEED)
     model = CascadeMVSNet(ndepths=NDEPTHS, compute_dtype=torch.bfloat16, device=dev,
                           **config)
-    load_bench_weights(model, SERVING_WEIGHTS)  # variance: warns, the weight nets go
+    load_bench_weights(model, SERVING_WEIGHTS, seeded)  # variance: warns, the weight nets go
     start = {k: v.clone() for k, v in model.state_dict().items()}
     optimizer, scheduler = make_optimizer(model.parameters(), 1e-3, "10,12,14:2",
                                           iters_per_epoch=1000)
@@ -786,7 +843,15 @@ def phase_train(dev):
         model.train()
         results[plain] = grads_of_one_step(model, batch, plain)
         torch.cuda.empty_cache()
-    (lk, gk), (lp, gp) = results[False], results[True]
+    check_step_parity("train vs plain (fp32)", results[False], results[True])
+    return launches, mean_ms, peak_gib
+
+
+def check_step_parity(path, kernels, plain):
+    """One step's (loss, gradients) on the kernels against the plain
+    versions: printed, and held to STEP_LOSS_RTOL and STEP_GRAD_L2."""
+    import torch
+    (lk, gk), (lp, gp) = kernels, plain
     num = sum(float(((gk[k] - gp[k]) ** 2).sum()) for k in gk)
     den = sum(float((gp[k] ** 2).sum()) for k in gp)
     l2 = math.sqrt(num / max(den, 1e-30))
@@ -798,11 +863,11 @@ def phase_train(dev):
                                      "p90": per_tensor[int(0.9 * len(per_tensor))],
                                      "max": per_tensor[-1]},
               "tol": {"loss_rtol": STEP_LOSS_RTOL, "grad_rel_l2": STEP_GRAD_L2}}
-    print("train vs plain (fp32)", json.dumps(parity), flush=True)
-    check(finite, "non-finite gradient in the fp32 step")
-    check(abs(lk - lp) <= STEP_LOSS_RTOL * abs(lp), f"fp32 step loss {lk} vs plain {lp}")
-    check(l2 <= STEP_GRAD_L2, f"fp32 step gradient relative L2 error {l2} > {STEP_GRAD_L2}")
-    return launches, mean_ms, peak_gib
+    print(path, json.dumps(parity), flush=True)
+    check(finite, f"{path}: non-finite gradient in the fp32 step")
+    check(abs(lk - lp) <= STEP_LOSS_RTOL * abs(lp), f"{path}: fp32 step loss {lk} vs plain {lp}")
+    check(l2 <= STEP_GRAD_L2, f"{path}: fp32 step gradient relative L2 error {l2} > "
+          f"{STEP_GRAD_L2}")
 
 
 def phase_train_nonfused(dev, path, agg_mode, steps):
@@ -1261,6 +1326,179 @@ def phase_test_cli(dev):
     return launches, summary
 
 
+def device_profile(fn, iters=3):
+    """(device ms, device activities) per call of ``fn``: every kernel,
+    copy and fill on the card under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace can come back without its device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith("Activity Buffer")]
+        if events:
+            return (sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters,
+                    len(events) / iters)
+    raise RuntimeError("check failed: three traces saw no device activity")
+
+
+def seeded_model(dev, seeded, **config):
+    """A bf16 serving model of ``config``: the trained weights, the modules
+    named in ``seeded`` from the seeded init (torch.manual_seed(SEED)),
+    said on a line of its own."""
+    import torch
+    from damvsnet_tpu_torch.model import CascadeMVSNet
+    from damvsnet_tpu_torch.utils.weights import load_bench_weights
+    torch.manual_seed(SEED)
+    model = CascadeMVSNet(ndepths=NDEPTHS, compute_dtype=torch.bfloat16, device=dev, **config)
+    load_bench_weights(model, SERVING_WEIGHTS, seeded)
+    print(f"weights {json.dumps(config)}: {SERVING_WEIGHTS}; seeded init "
+          f"(torch.manual_seed({SEED})) for {', '.join(seeded)}", flush=True)
+    return model
+
+
+def phase_fmt_serving(sample, dev):
+    """Phase 14. Returns ({counter: launches}, mean request ms, summary)."""
+    import numpy as np
+    import torch
+    from damvsnet_tpu_torch.infer import DepthRunner
+    model = seeded_model(dev, ("FMT_with_pathway",), use_fmt=True)
+    batch = serving_batch(sample)
+    rng = float(sample["depth_values"][-1] - sample["depth_values"][0])
+    runner = DepthRunner(model, device=dev)
+    warm_ms, times, out, launches, peak_gib = timed_requests(runner, batch)
+    check_launches("FMT cascade", launches, {"fused_adaptive_cost_volume": 3,
+                                             "prob_volume_stats_fused": 3}, REQUESTS)
+    depth = out["depth"]
+    check(depth.shape == (1, HEIGHT, WIDTH), f"FMT depth shape {depth.shape}")
+    check(bool(np.isfinite(depth).all()), "non-finite FMT depth")
+    parity = depth_parity(runner, model, batch, rng, depth)
+    floor = bf16_floor(runner, model, batch)
+    parity["bf16"]["floor_1ulp_p999"] = floor
+    parity["bf16"]["tol"] = max(parity["bf16"]["tol"], BF16_FLOOR_FACTOR * floor)
+    imgs = torch.as_tensor(batch["imgs"], device=dev)
+    with torch.inference_mode():
+        feats = model._view_features(imgs)
+        fmt_ms, fmt_activities = device_profile(
+            lambda: model.FMT_with_pathway(feats, torch.bfloat16))
+    request_ms, request_activities = device_profile(lambda: runner(batch))
+    summary = {"warmup_ms": warm_ms, "request_ms": times, "peak_mem_gib": peak_gib,
+               "launches": launches, "parity": parity,
+               "fmt_device_ms": fmt_ms, "fmt_device_activities": fmt_activities,
+               "request_device_ms": request_ms,
+               "request_device_activities": request_activities,
+               "fmt_share_of_request_device_ms": fmt_ms / request_ms,
+               "median_abs_err_vs_scene": float(np.median(np.abs(
+                   depth - sample["depth"]["stage3"][None])))}
+    print("FMT cascade", json.dumps(summary), flush=True)
+    for tag, p in parity.items():
+        check(p["p999_abs"] <= p["tol"], f"FMT cascade {tag}: depth p999 "
+              f"{p['p999_abs']} > {p['tol']}")
+    return launches, float(np.mean(times)), summary
+
+
+def phase_train_variants(dev):
+    """Phase 15. Returns ({counter: launches}, mean step ms, peak GiB)."""
+    import torch
+    from damvsnet_tpu_torch.train.loop import batch_to_device
+    config = {"fused_train": True, "use_fmt": True, "grad_method": "undetach"}
+    print(f"weights {json.dumps(config)}: {SERVING_WEIGHTS}; seeded init "
+          f"(torch.manual_seed({SEED})) for FMT_with_pathway", flush=True)
+    model, state, step, batches, start, launches, mean_ms, peak_gib = timed_training(
+        dev, "training_variants", VARIANT_STEPS, seeded=("FMT_with_pathway",), **config)
+    check_launches("variant training", launches, {"fused_adaptive_cost_volume": 3,
+                                                  "fused_adaptive_cost_volume_backward": 3},
+                   VARIANT_STEPS)
+    del state, step
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model.compute_dtype = torch.float32
+    batch = batch_to_device(batches[1], dev)
+    results = {}
+    for plain in (False, True):
+        model.load_state_dict(start)
+        model.train()
+        results[plain] = grads_of_one_step(model, batch, plain)
+        torch.cuda.empty_cache()
+    check_step_parity("variant train vs plain (fp32)", results[False], results[True])
+    model.load_state_dict(start)
+    model.grad_method = "detach"
+    _, detached = grads_of_one_step(model, batch, False)
+    undetached = results[False][1]
+
+    def rel(prefix):
+        keys = [k for k in undetached if k.startswith(prefix)]
+        num = sum(float(((undetached[k] - detached[k]) ** 2).sum()) for k in keys)
+        return math.sqrt(num / max(sum(float((detached[k] ** 2).sum()) for k in keys), 1e-30))
+    handoff = {"stage1_costreg_rel_l2": rel("cost_regularization.0."),
+               "stage3_costreg_rel_l2": rel("cost_regularization.2."),
+               "fmt_rel_l2": rel("FMT_with_pathway.")}
+    print("variant train, undetached vs detached gradients (fp32)", json.dumps(handoff),
+          flush=True)
+    check(handoff["stage1_costreg_rel_l2"] > UNDETACH_MIN_CHANGE,
+          f"the undetached handoff did not change stage 1's gradients: {handoff}")
+    del model
+    torch.cuda.empty_cache()
+    return launches, mean_ms, peak_gib
+
+
+def phase_variant_serving(sample, dev):
+    """Phase 16. Returns ({counter: launches}, mean request ms, peak GiB)."""
+    import numpy as np
+    import torch
+    from damvsnet_tpu_torch.infer import DepthRunner
+    model = seeded_model(dev, ("feature", "cost_regularization", "refine_network"),
+                         reg_mode="georeg", refine=True, arch_mode="unet")
+    batch = serving_batch(sample)
+    rng = float(sample["depth_values"][-1] - sample["depth_values"][0])
+    runner = DepthRunner(model, device=dev)
+    warm_ms, times, out, launches, peak_gib = timed_requests(runner, batch)
+    check_launches("GeoReg/refine/U-Net cascade", launches,
+                   {"fused_adaptive_cost_volume": 3, "prob_volume_stats_fused": 3}, REQUESTS)
+    check(bool(np.isfinite(out["depth"]).all()), "non-finite GeoReg depth")
+    args = (runner._tensor(batch["imgs"]),
+            {k: runner._tensor(v) for k, v in batch["proj_matrices"].items()},
+            runner._tensor(batch["depth_values"]))
+
+    def run(plain, dtype):
+        model.plain, model.compute_dtype = plain, dtype
+        with torch.inference_mode():
+            o = model(*args)
+            return {k: o[k].float().cpu().numpy() for k in ("depth", "refined_depth")}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parity, residual = {}, None
+    for tag, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        got, want = run(False, dtype), run(True, dtype)
+        if residual is None:  # what the seeded RefineNet adds, on the kernels in bf16
+            r = np.abs(got["refined_depth"] - got["depth"])
+            residual = {"mean_abs": float(r.mean()), "nonzero_share": float((r > 0).mean())}
+        parity[tag] = {}
+        for key in got:
+            check(got[key].shape == (1, HEIGHT, WIDTH) and bool(np.isfinite(got[key]).all()),
+                  f"GeoReg {tag} {key}: shape {got[key].shape} or non-finite")
+            diff = np.abs(got[key] - want[key])
+            parity[tag][key] = {"p999_abs": float(np.quantile(diff, 0.999)),
+                                "max_abs": float(diff.max()), "tol": DEPTH_TOL_SHARE * rng}
+    model.plain, model.compute_dtype = False, torch.bfloat16
+    parity["bf16"]["floor_1ulp_p999"] = bf16_floor(runner, model, batch)
+    print("GeoReg/refine/U-Net cascade", json.dumps({
+        "warmup_ms": warm_ms, "request_ms": times, "peak_mem_gib": peak_gib,
+        "launches": launches, "parity": parity, "refine_residual": residual}), flush=True)
+    for key, p in parity["fp32"].items():
+        check(p["p999_abs"] <= p["tol"], f"GeoReg/refine/U-Net fp32 {key}: p999 "
+              f"{p['p999_abs']} > {p['tol']}")
+    del model, runner
+    torch.cuda.empty_cache()
+    return launches, float(np.mean(times)), peak_gib
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1328,6 +1566,11 @@ def main():
     phase_nonfused_vs_cpu()
     torch.cuda.empty_cache()
     cli_launches, cli = phase_test_cli(dev)
+    torch.cuda.empty_cache()
+    fmt_launches, fmt_request_ms, fmt = phase_fmt_serving(sample, dev)
+    torch.cuda.empty_cache()
+    tv_launches, tv_step_ms, tv_peak = phase_train_variants(dev)
+    vs_launches, vs_request_ms, vs_peak = phase_variant_serving(sample, dev)
 
     def summary(name, rows, source, replaces, counter):
         """bf16 rows summed over the stages (one request's or one step's
@@ -1337,7 +1580,10 @@ def main():
                    "serving_variance": var_launches[counter],
                    "training_nonfused": nonfused_launches[counter],
                    "training_variance": var_train_launches[counter],
-                "test_cli": cli_launches[counter]}
+                   "test_cli": cli_launches[counter],
+                   "serving_fmt": fmt_launches[counter],
+                   "training_variants": tv_launches[counter],
+                   "serving_georeg_refine_unet": vs_launches[counter]}
         library = [r.get("library_ms") for r in main_rows]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1388,6 +1634,14 @@ def main():
           f"{cli['peak_mem_gib']:.2f} GiB, {cli['points']} points, acc "
           f"{cli['dtu_mm']['acc']:.4f} / comp {cli['dtu_mm']['comp']:.4f} / overall "
           f"{cli['dtu_mm']['overall']:.4f} mm (1152x864, N=5, bf16, {smi})", flush=True)
+    print(f"FMT cascade: {fmt_request_ms:.3f} ms per request, peak {fmt['peak_mem_gib']:.2f} "
+          f"GiB, FMT pathway {fmt['fmt_device_ms']:.3f} device ms in "
+          f"{fmt['fmt_device_activities']:.0f} device activities of the request's "
+          f"{fmt['request_device_ms']:.3f} (bf16, {smi})", flush=True)
+    print(f"variant training (FMT, undetached): {tv_step_ms:.3f} ms per step, peak "
+          f"{tv_peak:.2f} GiB (512x640, B=4, N=5, bf16, {smi})", flush=True)
+    print(f"GeoReg/refine/U-Net cascade: {vs_request_ms:.3f} ms per request, peak "
+          f"{vs_peak:.2f} GiB (bf16, {smi})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,20 +11,16 @@ process. It runs on CUDA, or on the device ``--device`` names, in bf16 on
 CUDA and fp32 elsewhere unless ``--dtype`` says otherwise. The consistency
 filter votes on that device (infer/fusion_device.py). The eval loaders,
 dypcd and pcd need cv2 and PIL; the consistency filter and inference read
-and write images through core/imageio.py only. Flags for what the port
-does not have yet raise, naming the ROADMAP item.
+and write images through core/imageio.py only. It builds what the JAX
+CLI builds from the same flags (``--use_fmt``, ``--grad_method``, which
+serving ignores, and ``--share_cr``, which raises in both packages: one
+regularizer cannot take the stages' three widths).
 """
 from __future__ import annotations
 
 import argparse
 import os
 
-_VARIANTS = "ROADMAP Queue 1 item 12, the variants"
-_UNSUPPORTED = {
-    "use_fmt": "FMT (ROADMAP Queue 1 item 11)",
-    "grad_method undetach": f"undetached stage handoff ({_VARIANTS})",
-    "share_cr": f"shared cost regularizer ({_VARIANTS})",
-}
 _NO_EFFECT = "accepted for the JAX CLI's command lines; no effect in the port"
 
 
@@ -76,18 +72,6 @@ def build_parser():
     return p
 
 
-def check_supported(args) -> None:
-    """Raise on a flag that asks for what the port does not have yet."""
-    asked = {
-        "use_fmt": args.use_fmt,
-        "grad_method undetach": args.grad_method == "undetach",
-        "share_cr": args.share_cr,
-    }
-    for flag, on in asked.items():
-        if on:
-            raise NotImplementedError(f"--{flag}: the port has no {_UNSUPPORTED[flag]}")
-
-
 def load_weights(model, path: str) -> None:
     """A flax flat-path .npz or a port .pt checkpoint (weights only) into
     ``model``; an orbax checkpoint directory raises."""
@@ -106,7 +90,6 @@ def load_weights(model, path: str) -> None:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    check_supported(args)
 
     import torch
 
@@ -128,7 +111,8 @@ def main(argv=None):
     model = CascadeMVSNet(
         ndepths=tuple(int(x) for x in args.ndepths.split(",") if x),
         cr_base_chs=tuple(int(x) for x in args.cr_base_chs.split(",") if x),
-        agg_mode=args.agg_mode, use_geo_fusion=not args.no_geo_fusion,
+        share_cr=args.share_cr, grad_method=args.grad_method, agg_mode=args.agg_mode,
+        use_fmt=args.use_fmt, use_geo_fusion=not args.no_geo_fusion, refine=False,
         compute_dtype=dtype, clamp_samples=not args.no_clamp_samples, device=device)
     if args.loadckpt:
         load_weights(model, args.loadckpt)

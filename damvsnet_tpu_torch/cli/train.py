@@ -8,29 +8,24 @@ debug-NaN flags).
         --numdepth 192 --loadckpt weights/bench_ckpt.npz
 
 It builds what the JAX CLI builds from the same flags: fpn, adaptive or
-variance aggregation (``--agg_mode``), detached handoff, geo fusion unless
-``--no_geo_fusion``, U-Net widths ``--cr_base_chs``. By default the cost
+variance aggregation (``--agg_mode``), the handoff ``--grad_method``
+(detach, or undetach), the FMT pathway with ``--use_fmt``, geo fusion
+unless ``--no_geo_fusion``, U-Net widths ``--cr_base_chs``
+(``--share_cr`` raises in both packages: one regularizer cannot take the
+stages' three widths). By default the cost
 volume trains through the plain warp with the weight net's batch
 statistics and unclamped hypotheses; ``--fused_train`` trains the adaptive
 cost volume through the fused kernels (K1 with its backward K3 on the
 card) with the folded weight net and clamped hypotheses. The DTU and
 BlendedMVS loaders need cv2 and PIL. It runs on CUDA, or on the device
-``--device`` names. Flags for what the port does not have yet raise,
-naming the ROADMAP item.
+``--device`` names. ``--profile_dir``, which the port does not have yet,
+raises, naming the ROADMAP item.
 """
 from __future__ import annotations
 
 import argparse
 import os
 import time
-
-_VARIANTS = "ROADMAP Queue 1 item 12, the variants"
-_UNSUPPORTED = {
-    "use_fmt": "FMT (ROADMAP Queue 1 item 11)",
-    "grad_method undetach": f"undetached stage handoff ({_VARIANTS})",
-    "share_cr": f"shared cost regularizer ({_VARIANTS})",
-    "profile_dir": "torch.profiler trace of training (ROADMAP Queue 1 item 14)",
-}
 
 
 def build_parser():
@@ -89,15 +84,9 @@ def build_parser():
 
 def check_supported(args) -> None:
     """Raise on a flag that asks for what the port does not have yet."""
-    asked = {
-        "use_fmt": args.use_fmt,
-        "grad_method undetach": args.grad_method == "undetach",
-        "share_cr": args.share_cr,
-        "profile_dir": args.profile_dir is not None,
-    }
-    for flag, on in asked.items():
-        if on:
-            raise NotImplementedError(f"--{flag}: the port has no {_UNSUPPORTED[flag]}")
+    if args.profile_dir is not None:
+        raise NotImplementedError("--profile_dir: the port has no torch.profiler trace "
+                                  "of training (ROADMAP Queue 1 item 14)")
 
 
 def main(argv=None):
@@ -126,7 +115,8 @@ def main(argv=None):
         dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[args.dtype]
     cr_base_chs = tuple(int(x) for x in args.cr_base_chs.split(",") if x)
     model = CascadeMVSNet(ndepths=ndepths, compute_dtype=dtype, device=device,
-                          agg_mode=args.agg_mode,
+                          agg_mode=args.agg_mode, share_cr=args.share_cr,
+                          grad_method=args.grad_method, use_fmt=args.use_fmt,
                           use_geo_fusion=not args.no_geo_fusion, cr_base_chs=cr_base_chs,
                           fused_train=args.fused_train,
                           clamp_samples=args.fused_train)

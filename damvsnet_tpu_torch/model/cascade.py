@@ -1,17 +1,23 @@
 """CascadeMVSNet forward, serving and training (counterpart of
 damvsnet_tpu/model/cascade.py: its serving configuration, its variance
-aggregation, and its training configurations, the default one and
-``fused_train``).
+aggregation, its training configurations, the default one and
+``fused_train``, and its variants: ``use_fmt``, ``grad_method``,
+``reg_mode="georeg"``, ``refine``, ``arch_mode="unet"``).
 
-  views:     fpn FeatureNet; at inference all N views as one batch, in
-             training one call per view (batch-statistics BN must not see
-             the views folded into the batch; cascade.py:309-311)
+  views:     FeatureNet (fpn, or unet); at inference all N views as one
+             batch, in training one call per view (batch-statistics BN
+             must not see the views folded into the batch;
+             cascade.py:309-311); then, with ``use_fmt``, the FMT pathway
+             over all views (no BN: the views run as one batch)
   per stage: GeoFeatureFusion replaces the ref feature at stages 2/3
              (``use_geo_fusion``), conditioned on the previous stage's
              depth (not detached: in training stages 2 and 3 send gradient
              back into stage 1)
-             -> ADIA depth sampling at full resolution from the DETACHED
-                previous depth and sigma, optionally clamped into the input
+             -> ADIA depth sampling at full resolution from the previous
+                depth and sigma, detached unless ``grad_method="undetach"``
+                (the samples then carry gradient into the previous stage
+                through this stage's statistics and ADIA's softmax, never
+                through the warp), optionally clamped into the input
                 sweep range (``clamp_samples``) -> trilinear snap to stage
                 resolution (stage 1: the uniform sweep is built at stage
                 resolution directly, and never materialized)
@@ -31,13 +37,29 @@ aggregation, and its training configurations, the default one and
                   training, variance: ``variance_cost_volume`` over the
                     plain warp under autograd (K4 is inference-only, as on
                     the TPU)
-             -> CostRegNet 3-D U-Net (base widths ``cr_base_chs``)
+             -> CostRegNet 3-D U-Net (base widths ``cr_base_chs``), or
+                with ``reg_mode="georeg"`` GeoRegNet2d fed the previous
+                stage's probability volume upsampled x2 (not detached, as
+                in JAX), encodings std / z / z
              -> fp32 stats tail: softmax, soft-argmin depth, confidence,
                 3-sigma band (CUDA kernel K2 at inference, reading the
                 regularized cost in the compute dtype; in training the
                 plain version under autograd, as the JAX package trains
                 through its XLA stats: K2 has no backward)
   handoff:   depth and sigma bilinearly upsampled to input resolution.
+  refine:    RefineNet on the reference image and the final depth ->
+             ``refined_depth``.
+
+Dtypes follow the JAX package's promotion: the FMT pathway and the U-Net
+FeatureNet's stage-2/3 heads return fp32 under a bf16 compute dtype, so
+the views' features reach the cost volume in fp32; a reference feature of
+another dtype (geo fusion's, in the compute dtype) is upcast to theirs, an
+exact step. The volume enters the regularizer in the compute dtype, as the
+first JAX convolution casts it.
+
+``share_cr`` raises: one CostRegNet cannot take the three stages' cost
+volumes, 32, 16 and 8 channels wide, and the JAX package's shared
+regularizer fails at init (flax's ScopeParamShapeError at stage 2).
 
 ``model.train()`` selects training: BatchNorm uses batch statistics
 (nn/blocks.py); with ``fused_train`` the folded weight net keeps its
@@ -54,11 +76,15 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..nn.aggweight import AggWeightNetVolume, fold_aggweight
 from ..nn.costreg import CostRegNet
 from ..nn.feature import FeatureNet
+from ..nn.fmt import FMTWithPathway
 from ..nn.geofusion import GeoFeatureFusion
+from ..nn.georeg import GeoRegNet2d
+from ..nn.refine import RefineNet
 from ..ops.costvol import build_cost_volume, variance_cost_volume
 from ..ops.kernels.fused_costvol import (fused_adaptive_cost_volume,
                                          fused_adaptive_cost_volume_plain)
@@ -104,8 +130,13 @@ class CascadeMVSNet(nn.Module):
     JAX package). fused_train: train the adaptive cost volume through K1/K3
     with the folded weight net, read only in ``.train()``; off (the JAX
     package's default), training takes the plain warp and the weight net's
-    batch statistics. plain: run the kernels' plain PyTorch versions
-    instead of the CUDA kernels (under autograd in training) — a reference
+    batch statistics. use_fmt: the FMT pathway on the views' features.
+    grad_method: "detach" (the default) or "undetach" (the stage handoff
+    keeps its gradient). reg_mode: "costreg" (the 3-D U-Net) or "georeg"
+    (GeoRegNet2d; ndepths must halve, then quarter: 64/32/8). refine: the
+    RefineNet head. arch_mode: FeatureNet's "fpn" or "unet". share_cr
+    raises (see the module's docstring). plain: run the kernels' plain
+    PyTorch versions instead of the CUDA kernels (under autograd in training) — a reference
     for checking the kernels on the card; nothing selects it on its own.
     device: where the parameters live, CUDA unless the caller names
     another; raises if CUDA is absent. The defaults are the shipped
@@ -118,7 +149,10 @@ class CascadeMVSNet(nn.Module):
                  use_geo_fusion: bool = True,
                  cr_base_chs: Sequence[int] = (8, 8, 8),
                  clamp_samples: bool = True, align_corners: bool = False,
-                 fused_train: bool = False):
+                 fused_train: bool = False, use_fmt: bool = False,
+                 share_cr: bool = False, grad_method: str = "detach",
+                 reg_mode: str = "costreg", refine: bool = False,
+                 arch_mode: str = "fpn"):
         super().__init__()
         if len(ndepths) != 3 or len(cr_base_chs) != 3:
             raise ValueError(f"the cascade has 3 stages, got ndepths={ndepths}, "
@@ -127,6 +161,19 @@ class CascadeMVSNet(nn.Module):
             raise ValueError(f"agg_mode {agg_mode!r} is neither 'adaptive' nor 'variance'")
         if align_corners and agg_mode != "variance":
             raise ValueError("align_corners is read only by the variance cost volume")
+        if share_cr:
+            raise ValueError(
+                "share_cr: one CostRegNet cannot take the cost volumes of all three "
+                f"stages, {STAGE_CHANNELS} channels wide; the JAX package's shared "
+                "regularizer fails at init the same way (flax ScopeParamShapeError)")
+        if grad_method not in ("detach", "undetach"):
+            raise ValueError(f"grad_method {grad_method!r} is neither 'detach' nor 'undetach'")
+        if reg_mode not in ("costreg", "georeg"):
+            raise ValueError(f"reg_mode {reg_mode!r} is neither 'costreg' nor 'georeg'")
+        if reg_mode == "georeg" and (ndepths[0] != 2 * ndepths[1] or ndepths[1] != 4 * ndepths[2]):
+            raise ValueError("georeg max-pools the previous probability volume along D "
+                             "once at stage 2 and twice at stage 3: ndepths must be "
+                             f"(4k, 2k, k/2), got {tuple(ndepths)}")
         self.ndepths = tuple(ndepths)
         self.compute_dtype = compute_dtype
         self.plain = plain
@@ -135,14 +182,27 @@ class CascadeMVSNet(nn.Module):
         self.clamp_samples = clamp_samples
         self.align_corners = align_corners
         self.fused_train = fused_train
-        self.feature = FeatureNet(base_channels=8)
+        self.use_fmt = use_fmt
+        self.grad_method = grad_method
+        self.reg_mode = reg_mode
+        self.refine = refine
+        self.arch_mode = arch_mode
+        self.feature = FeatureNet(base_channels=8, arch_mode=arch_mode)
+        if use_fmt:
+            self.FMT_with_pathway = FMTWithPathway(base_channels=8)
         if use_geo_fusion:
             self.GeoFeatureFusionNet = GeoFeatureFusion()
-        self.cost_regularization = nn.ModuleList(
-            CostRegNet(c, base_channels=base)
-            for c, base in zip(STAGE_CHANNELS, cr_base_chs))
+        if reg_mode == "georeg":
+            self.cost_regularization = nn.ModuleList(
+                GeoRegNet2d(c, enc) for c, enc in zip(STAGE_CHANNELS, ("std", "z", "z")))
+        else:
+            self.cost_regularization = nn.ModuleList(
+                CostRegNet(c, base_channels=base)
+                for c, base in zip(STAGE_CHANNELS, cr_base_chs))
         if agg_mode == "adaptive":
             self.DepthNet = DepthNet(STAGE_CHANNELS)
+        if refine:
+            self.refine_network = RefineNet()
         self.to(resolve_device(device))
         self.eval()
 
@@ -154,14 +214,16 @@ class CascadeMVSNet(nn.Module):
         depth_values = depth_values.float()
         dmin = depth_values.min(dim=1).values[:, None, None, None]
         dmax = depth_values.max(dim=1).values[:, None, None, None]
-        views = self._view_features(imgs)
+        feats = self._view_features(imgs)
+        if self.use_fmt:
+            feats = self.FMT_with_pathway(feats, self.compute_dtype)
 
         outputs = {}
-        depth = sigma = None
+        depth = sigma = prob_volume = None
         for stage_idx, ndepth in enumerate(self.ndepths):
             name = f"stage{stage_idx + 1}"
             stage_h, stage_w = height >> (2 - stage_idx), width >> (2 - stage_idx)
-            ref_fea, *src_feas = (v[name] for v in views)
+            ref_fea, *src_feas = feats[name].unbind(1)
 
             if stage_idx >= 1:
                 if self.use_geo_fusion:
@@ -174,30 +236,46 @@ class CascadeMVSNet(nn.Module):
                     ref_fea = self.GeoFeatureFusionNet(
                         ref_img.permute(0, 3, 1, 2), depth_in.permute(0, 3, 1, 2),
                         depth_values, stage_idx, ref_fea.permute(0, 3, 1, 2),
+                        self.compute_dtype,
                     ).permute(0, 2, 3, 1).contiguous()
-                # the handoff is detached ("detach" grad method)
-                cur_depth = resize_bilinear(depth.detach()[..., None],
-                                            (height, width))[..., 0][:, None]
-                cur_var = resize_bilinear(sigma.detach()[..., None],
-                                          (height, width))[..., 0][:, None]
+                if self.grad_method == "detach":
+                    depth, sigma = depth.detach(), sigma.detach()
+                cur_depth = resize_bilinear(depth[..., None], (height, width))[..., 0][:, None]
+                cur_var = resize_bilinear(sigma[..., None], (height, width))[..., 0][:, None]
                 samples = uncertainty_aware_samples(cur_depth, cur_var, ndepth,
                                                     height, width)
                 if self.clamp_samples:
+                    # minimum(maximum()), not clamp: at a tie it passes half
+                    # the gradient, as jnp.clip does
                     samples = torch.minimum(torch.maximum(samples, dmin), dmax)
                 samples = resize_trilinear_depth(samples, (ndepth, stage_h, stage_w))
             else:
                 samples = uncertainty_aware_samples(depth_values, None, ndepth,
                                                     stage_h, stage_w)
 
+            # the views' features share one dtype; geo fusion's reference,
+            # in the compute dtype, is upcast to theirs where they are fp32
+            ref_fea = ref_fea.to(src_feas[0].dtype)
             fused = fuse_projection_matrices(proj_matrices[name])
             volume = self._cost_volume(stage_idx, ref_fea, src_feas, fused[:, 0],
                                        [fused[:, v] for v in range(1, n)], samples)
-            cost = self.cost_regularization[stage_idx](volume.permute(0, 4, 1, 2, 3))
-            out = stats(cost[:, 0], samples)
+            volume = volume.permute(0, 4, 1, 2, 3).to(self.compute_dtype)
+            if self.reg_mode == "georeg":
+                prob_last = None
+                if stage_idx >= 1:  # the previous probability volume, upsampled x2
+                    prob_last = F.interpolate(prob_volume, size=(stage_h, stage_w),
+                                              mode="bilinear", align_corners=False)
+                cost = self.cost_regularization[stage_idx](volume, stage_idx, prob_last)
+            else:
+                cost = self.cost_regularization[stage_idx](volume)[:, 0]
+            out = stats(cost, samples)
             out["depth_values"] = samples
-            depth, sigma = out["depth"], out["variance"]
+            depth, sigma, prob_volume = out["depth"], out["variance"], out["prob_volume"]
             outputs[name] = out
         outputs.update(outputs["stage3"])
+        if self.refine:
+            outputs["refined_depth"] = self.refine_network(imgs[:, 0].float(), depth,
+                                                           self.compute_dtype)
         return outputs
 
     def _cost_volume(self, stage_idx, ref_fea, src_feas, ref_proj, src_projs, samples):
@@ -224,25 +302,24 @@ class CascadeMVSNet(nn.Module):
         return costvol(ref_fea, src_feas, ref_proj, src_projs, samples,
                        *fold_aggweight(net))
 
-    def _view_features(self, imgs: torch.Tensor) -> list[dict]:
-        """Per view, {stage: NHWC [B, h, w, C] feature map}. At inference
-        the N views run as one batch; the NCHW permutation of the NHWC
-        images is a channels_last view, so every map stays channels_last
-        and its NHWC permutation is free. In training one FeatureNet call
-        per view, in view order (each updates the running statistics)."""
+    def _view_features(self, imgs: torch.Tensor) -> dict:
+        """{stage: [B, N, h, w, C]}, each view's feature map NHWC. At
+        inference the N views run as one batch; the NCHW permutation of the
+        NHWC images is a channels_last view, so every map stays
+        channels_last and its NHWC permutation is free. In training one
+        FeatureNet call per view, in view order (each updates the running
+        statistics), the maps stacked."""
         b, n, height, width, _ = imgs.shape
         if self.training:
             per_view = []
             for v in range(n):
                 x = imgs[:, v].permute(0, 3, 1, 2).to(self.compute_dtype)
-                feats = self.feature(x.contiguous(memory_format=torch.channels_last))
-                per_view.append({k: f.permute(0, 2, 3, 1).contiguous()
-                                 for k, f in feats.items()})
-            return per_view
+                per_view.append(self.feature(x.contiguous(memory_format=torch.channels_last)))
+            return {k: torch.stack([f[k].permute(0, 2, 3, 1) for f in per_view], dim=1)
+                    for k in per_view[0]}
         x = imgs.reshape(b * n, height, width, 3).permute(0, 3, 1, 2)
         feats = self.feature(x.to(self.compute_dtype))
         # contiguous() is a no-op on the card; a copy only where a conv
         # returns another layout
-        stacked = {k: f.permute(0, 2, 3, 1).contiguous().view(
+        return {k: f.permute(0, 2, 3, 1).contiguous().view(
             b, n, f.shape[2], f.shape[3], f.shape[1]) for k, f in feats.items()}
-        return [{k: f[:, v] for k, f in stacked.items()} for v in range(n)]

@@ -14,6 +14,10 @@ The net has two forms:
     updates do;
   * ``fold_aggweight``, the affine form the fused cost-volume kernel K1
     evaluates per voxel, for serving and for ``fused_train``.
+
+``AggWeightNetVolume2`` is the AA-RMVSNet-style alternative (reference
+module.py:567-591): a 3x3x3 stem, a 1x1x1 residual pair and a 1x1x1 head;
+a library module that no cascade uses, as in JAX.
 """
 from __future__ import annotations
 
@@ -35,6 +39,21 @@ class AggWeightNetVolume(nn.Module):
         x's dtype. The NCDHW permutation is a channels_last_3d view, so no
         copy is made."""
         return self.w_net(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
+
+
+class AggWeightNetVolume2(nn.Module):
+    def __init__(self, in_channels: int):
+        super().__init__()
+        self.conv0 = Conv3dBlock(in_channels, 1, 3, 1, 1)
+        self.res0 = Conv3dBlock(1, 1, 1, 1, 0)
+        self.res1 = Conv3dBlock(1, 1, 1, 1, 0)
+        self.conv1 = Conv3dBlock(1, 1, 1, 1, 0)
+
+    def forward(self, x):
+        """[B, D, H, W, C] -> [B, D, H, W, 1] non-negative weights."""
+        stem = self.conv0(x.permute(0, 4, 1, 2, 3))
+        out = self.res1(self.res0(stem)) + stem
+        return self.conv1(out).permute(0, 2, 3, 4, 1)
 
 
 def fold_aggweight(net: AggWeightNetVolume):

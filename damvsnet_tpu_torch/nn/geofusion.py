@@ -103,14 +103,17 @@ class GeoFeatureFusion(nn.Module):
         self.final_decoder_stage2 = deconvbnrelu(16, 16, 3, 1, 1, 0)
         self.final_decoder_stage3 = deconvbnrelu(8, 8, 3, 1, 1, 0)
 
-    def forward(self, rgb, depth, depth_values, stage_idx, origin_feat):
+    def forward(self, rgb, depth, depth_values, stage_idx, origin_feat, dtype=None):
         """rgb [B,3,H,W] and depth [B,1,H,W] (previous stage, upsampled x2),
-        fp32; depth_values [B,D0]; origin_feat [B,C,H,W] in the compute
-        dtype. Returns the fused replacement for the reference view's
-        stage feature, in the compute dtype."""
+        fp32; depth_values [B,D0]; origin_feat [B,C,H,W]. Returns the fused
+        replacement for the reference view's stage feature, computed in
+        ``dtype`` (the compute dtype; default origin_feat's). An fp32
+        origin feature under a bf16 compute dtype (the FMT's, the U-Net
+        FeatureNet's) is added in fp32 and the sum cast back, as JAX's
+        promotion and its next convolution's cast do."""
         if stage_idx not in (1, 2):
             raise ValueError(f"geo fusion runs at stage index 1 or 2, got {stage_idx}")
-        dt = origin_feat.dtype
+        dt = origin_feat.dtype if dtype is None else dtype
         dmin = depth_values[:, 0][:, None, None, None]
         dmax = depth_values[:, -1][:, None, None, None]
         d = (depth - dmin) / (dmax - dmin)
@@ -152,7 +155,7 @@ class GeoFeatureFusion(nn.Module):
         decoder_feature6 = self.decoder_layer6(self.decoder_layer5(decoder_feature4))
         if stage_idx == 1:
             rgbdepth = self.rgbdepth_decoder_stage2(sparsed_feature1 + decoder_feature6)
-            return self.final_decoder_stage2(rgbdepth + origin_feat)
+            return self.final_decoder_stage2((rgbdepth + origin_feat).to(dt))
         decoder_feature7 = self.decoder_layer7(decoder_feature6)
         rgbdepth = self.rgbdepth_decoder_stage3(sparsed_feature + decoder_feature7)
-        return self.final_decoder_stage3(rgbdepth + origin_feat)
+        return self.final_decoder_stage3((rgbdepth + origin_feat).to(dt))

@@ -1,6 +1,7 @@
 """Where the PyTorch/CUDA port spends device time, serving or training.
 
     python3 scripts/profile_torch_cascade.py [--train [--nonfused]] [--agg-mode variance]
+                                          [--variant fmt|georeg]
                                           [--cudnn-benchmark] [--trace PATH]
                                           (repository root, one GPU)
 
@@ -19,6 +20,12 @@ their own batches, then REPEATS steps under torch.profiler. ``--train
 ``fused_train=False``, unclamped hypotheses, the plain warp under autograd,
 the weight nets with batch statistics); ``--train --agg-mode variance``:
 the variance training step (phase 11, always non-fused).
+
+``--variant fmt``: serving with the FMT pathway (chip_smoke.py phase 14;
+the trained weights and a seeded pathway), then the pathway alone, on the
+request's features; with ``--train`` the phase-15 step (fused, FMT, the
+undetached handoff). ``--variant georeg``: serving with GeoRegNet2d,
+RefineNet and the U-Net FeatureNet, those seeded (phase 16).
 
 Prints device time per kernel family, the top kernels and the slowest
 convolutions with their input shapes, the device's busy and idle share of
@@ -55,6 +62,7 @@ FAMILIES = (
     ("convolution", ("conv", "xmma", "gemm", "cudnn", "cutlass", "dgrad", "wgrad",
                      "implicit", "winograd", "sm90", "fft")),
     ("resize", ("upsample", "interp")),
+    ("layer norm", ("layer_norm",)),
     ("pooling", ("pool",)),
     # the plain warp's gather and, in its backward, index_put's sort and
     # accumulate (non-fused training)
@@ -73,8 +81,17 @@ def family(name: str) -> str:
     return "other"
 
 
-def serving_request(agg_mode="adaptive"):
-    """Warm DepthRunner up on the serving request; return the request."""
+# --variant: the CascadeMVSNet fields, and the modules that start from the
+# seeded init (torch.manual_seed(3)); the rest loads weights/bench_ckpt.npz
+VARIANTS = {None: ({}, ()),
+            "fmt": ({"use_fmt": True}, ("FMT_with_pathway",)),
+            "georeg": ({"reg_mode": "georeg", "refine": True, "arch_mode": "unet"},
+                       ("feature", "cost_regularization", "refine_network"))}
+
+
+def serving_request(agg_mode="adaptive", variant=None):
+    """Warm DepthRunner up on the serving request; return the request and
+    {name: a part of it to profile alone}."""
     import torch
     from damvsnet_tpu_torch.data.synthetic import make_synthetic_sample
     from damvsnet_tpu_torch.infer import DepthRunner
@@ -86,15 +103,26 @@ def serving_request(agg_mode="adaptive"):
     batch = {"imgs": sample["imgs"][None],
              "proj_matrices": {k: v[None] for k, v in sample["proj_matrices"].items()},
              "depth_values": sample["depth_values"][None]}
+    config, seeded = VARIANTS[variant]
+    torch.manual_seed(3)
     model = CascadeMVSNet(ndepths=(64, 32, 8), compute_dtype=torch.bfloat16,
-                          agg_mode=agg_mode)
-    load_bench_weights(model, "weights/bench_ckpt.npz")
+                          agg_mode=agg_mode, **config)
+    load_bench_weights(model, "weights/bench_ckpt.npz", seeded)
     runner = DepthRunner(model)
     runner(batch)
-    return lambda: runner(batch)
+    parts = {}
+    if variant == "fmt":
+        with torch.inference_mode():
+            feats = model._view_features(runner._tensor(batch["imgs"]))
+
+        def pathway():
+            with torch.inference_mode():
+                model.FMT_with_pathway(feats, torch.bfloat16)
+        parts["FMT pathway"] = pathway
+    return (lambda: runner(batch)), parts
 
 
-def training_step(fused=True, agg_mode="adaptive"):
+def training_step(fused=True, agg_mode="adaptive", variant=None):
     """Warm the training step up (two steps); return one more step, on a
     batch of its own."""
     import torch
@@ -106,9 +134,13 @@ def training_step(fused=True, agg_mode="adaptive"):
     from damvsnet_tpu_torch.train.state import TrainState
     from damvsnet_tpu_torch.utils.weights import load_bench_weights
 
+    config, seeded = VARIANTS[variant]
+    if variant == "fmt":
+        config = dict(config, grad_method="undetach")
+    torch.manual_seed(3)
     model = CascadeMVSNet(ndepths=(64, 32, 8), compute_dtype=torch.bfloat16, agg_mode=agg_mode,
-                          fused_train=fused, clamp_samples=fused)
-    load_bench_weights(model, "weights/bench_ckpt.npz")
+                          fused_train=fused, clamp_samples=fused, **config)
+    load_bench_weights(model, "weights/bench_ckpt.npz", seeded)
     optimizer, scheduler = make_optimizer(model.parameters(), 1e-3, "10,12,14:2",
                                           iters_per_epoch=1000)
     state = TrainState(model, optimizer, scheduler)
@@ -119,12 +151,38 @@ def training_step(fused=True, agg_mode="adaptive"):
     for batch in batches[:2]:
         step(state, batch)
     torch.cuda.synchronize()
-    return lambda: step(state, batches[2])
+    return (lambda: step(state, batches[2])), {}
+
+
+def device_activities(prof):
+    """{kernel name: [device ms, count]} of a profile's device activities
+    (kernels, memcpys, memsets): operator rows of key_averages() repeat
+    their kernels' time."""
+    from torch.autograd import DeviceType
+    per_kernel = defaultdict(lambda: [0.0, 0])
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA or evt.name.startswith("Activity Buffer"):
+            continue
+        per_kernel[evt.name][0] += evt.time_range.elapsed_us() / 1e3
+        per_kernel[evt.name][1] += 1
+    return per_kernel
+
+
+def print_families(per_kernel, unit, top):
+    per_family = defaultdict(float)
+    for name, (ms, _) in per_kernel.items():
+        per_family[family(name)] += ms
+    busy_ms = sum(ms for ms, _ in per_kernel.values())
+    for fam, ms in sorted(per_family.items(), key=lambda kv: -kv[1]):
+        print(f"  {fam:30s} {ms / REPEATS:9.3f} ms/{unit}  {ms / busy_ms:6.1%}")
+    print(f"top device activities (ms per {unit}, count per {unit}):")
+    for name, (ms, n) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"  {ms / REPEATS:9.3f}  {n / REPEATS:6.1f}  {name[:110]}")
+    return per_family, busy_ms
 
 
 def main():
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     args = sys.argv[1:]
@@ -143,8 +201,11 @@ def main():
     fused = "--nonfused" not in args and agg_mode == "adaptive"
     if "--nonfused" in args and not train:
         raise SystemExit("--nonfused profiles a training step: pass --train")
-    unit, run = (("step", training_step(fused, agg_mode)) if train
-                 else ("request", serving_request(agg_mode)))
+    variant = args[args.index("--variant") + 1] if "--variant" in args else None
+    if variant not in VARIANTS:
+        raise SystemExit(f"--variant {variant}: one of fmt, georeg")
+    unit, (run, parts) = (("step", training_step(fused, agg_mode, variant)) if train
+                          else ("request", serving_request(agg_mode, variant)))
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
@@ -154,34 +215,30 @@ def main():
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    # device-side activities only (kernels, memcpys, memsets): operator
-    # rows of key_averages() repeat their kernels' time
-    per_kernel = defaultdict(float)
-    calls = defaultdict(int)
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA or evt.name.startswith("Activity Buffer"):
-            continue
-        per_kernel[evt.name] += evt.time_range.elapsed_us() / 1e3
-        calls[evt.name] += 1
-    per_family = defaultdict(float)
-    for name, ms in per_kernel.items():
-        per_family[family(name)] += ms
-    busy_ms = sum(per_kernel.values())
-
+    per_kernel = device_activities(prof)
     print(f"card: {smi}")
+    busy_ms = sum(ms for ms, _ in per_kernel.values())
     print(f"{REPEATS} {unit}s: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.4f}")
-    for fam, ms in sorted(per_family.items(), key=lambda kv: -kv[1]):
-        print(f"  {fam:30s} {ms / REPEATS:9.3f} ms/{unit}  {ms / busy_ms:6.1%}")
-    print(f"top device activities (ms per {unit}, count per {unit}):")
-    for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:25]:
-        print(f"  {ms / REPEATS:9.3f}  {calls[name] / REPEATS:6.1f}  {name[:110]}")
+    per_family, _ = print_families(per_kernel, unit, 25)
     print(f"slowest convolutions by input shapes (ms per {unit}, calls per {unit}):")
     convs = [e for e in prof.key_averages(group_by_input_shape=True)
              if e.key.startswith("aten::cudnn_convolution")]
     for e in sorted(convs, key=lambda e: -e.device_time_total)[:10]:
         print(f"  {e.device_time_total / 1e3 / REPEATS:9.3f}  {e.count / REPEATS:6.1f}  "
               f"{e.key} {e.input_shapes[:2]}")
+    parts_ms = {}
+    for name, fn in parts.items():
+        fn()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as part:
+            for _ in range(REPEATS):
+                fn()
+            torch.cuda.synchronize()
+        part_kernels = device_activities(part)
+        parts_ms[name] = sum(ms for ms, _ in part_kernels.values()) / REPEATS
+        print(f"{name} alone: {parts_ms[name]:.3f} device ms per call, "
+              f"{sum(n for _, n in part_kernels.values()) / REPEATS:.0f} device activities")
+        print_families(part_kernels, "call", 15)
     if "--trace" in args:
         path = args[args.index("--trace") + 1]
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -189,14 +246,15 @@ def main():
     print(json.dumps({
         "card": smi, "workload": "training" if train else "serving",
         "fused_train": fused if train else None,
-        "agg_mode": agg_mode, f"{unit}s": REPEATS,
+        "agg_mode": agg_mode, "variant": variant, f"{unit}s": REPEATS,
         f"wall_ms_per_{unit}": wall_ms / REPEATS,
         f"device_busy_ms_per_{unit}": busy_ms / REPEATS,
         "idle_share": 1 - busy_ms / wall_ms,
         f"family_ms_per_{unit}": {k: v / REPEATS for k, v in per_family.items()},
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "cudnn_benchmark": torch.backends.cudnn.benchmark,
-        f"device_activities_per_{unit}": sum(calls.values()) / REPEATS}))
+        f"device_activities_per_{unit}": sum(n for _, n in per_kernel.values()) / REPEATS,
+        "parts_device_ms": parts_ms}))
     return 0
 
 

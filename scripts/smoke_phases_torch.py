@@ -1,0 +1,73 @@
+"""Some phases of chip_smoke.py alone, from one or more trees, on one GPU.
+
+    python3 scripts/smoke_phases_torch.py 14 15 16
+    python3 scripts/smoke_phases_torch.py 5 7 --trees _build/parent . . _build/parent
+
+Each tree (a checkout of the repository; default the one this script is
+in) runs in a process of its own, in the order given, so listing a parent
+tree around this one (parent / this / this / parent) compares two commits
+on the same card. The kernels are built in each tree first. Phases: 5 (the
+adaptive serving cascade), 7 (the fused training step), 14 (FMT serving),
+15 (FMT training, undetached), 16 (GeoReg / refine / U-Net serving); each
+prints its chip_smoke.py lines, prefixed with the tree, and fails as the
+smoke does.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CHILD = """
+import sys, torch
+import chip_smoke as c
+from damvsnet_tpu_torch.data.synthetic import make_synthetic_sample
+from damvsnet_tpu_torch.model import CascadeMVSNet
+from damvsnet_tpu_torch.ops.kernels import build
+from damvsnet_tpu_torch.utils.weights import load_bench_weights
+build.build()
+print("card:", c.nvidia_smi(), flush=True)
+dev = torch.device("cuda")
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+sample = make_synthetic_sample(height=c.HEIGHT, width=c.WIDTH, nviews=c.NVIEWS,
+                               ndepths=c.D0, with_gt=True, seed=c.SEED)
+for phase in sys.argv[1:]:
+    if phase == "5":
+        model = CascadeMVSNet(ndepths=c.NDEPTHS, compute_dtype=torch.bfloat16, device=dev)
+        load_bench_weights(model, c.SERVING_WEIGHTS)
+        c.phase_cascade(sample, model, dev)
+        del model
+    elif phase == "7":
+        c.phase_train(dev)
+    elif phase == "14":
+        c.phase_fmt_serving(sample, dev)
+    elif phase == "15":
+        c.phase_train_variants(dev)
+    elif phase == "16":
+        c.phase_variant_serving(sample, dev)
+    torch.cuda.empty_cache()
+"""
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("phases", nargs="+", choices=["5", "7", "14", "15", "16"])
+    ap.add_argument("--trees", nargs="+", default=[REPO])
+    args = ap.parse_args()
+    for tree in args.trees:
+        proc = subprocess.run([sys.executable, "-c", CHILD, *args.phases], cwd=tree,
+                              capture_output=True, text=True)
+        for line in proc.stdout.splitlines():
+            print(f"{tree}: {line}", flush=True)
+        if proc.returncode:
+            sys.stderr.write(proc.stderr[-4000:])
+            return proc.returncode
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -28,7 +28,9 @@ from damvsnet_tpu.model import CascadeMVSNet as JCascade
 from damvsnet_tpu_torch.cli import test as cli_test
 from damvsnet_tpu_torch.core.pfm import read_pfm
 from damvsnet_tpu_torch.core.ply import read_ply
-from torch_helpers import checkpoint_trees
+from damvsnet_tpu_torch.nn.fmt import FMTWithPathway
+from damvsnet_tpu_torch.utils.weights import module_table
+from torch_helpers import checkpoint_trees, port_flax_flat
 
 torch.set_num_threads(1)
 pytest.importorskip("cv2")
@@ -75,8 +77,15 @@ def _files(folder):
 
 def test_depth_files_match_jax(runs):
     _, jax_out, port_out = runs
-    names = _files(jax_out / SCAN)
-    assert names == _files(port_out / SCAN)
+    _assert_same_depth_files(port_out, jax_out)
+
+
+def _assert_same_depth_files(port_out, jax_out, masks=True):
+    """Every depth and confidence file at 1e-4, the other files byte for
+    byte; ``masks=False`` leaves out dypcd's mask PNGs (a run without it)."""
+    keep = lambda names: [n for n in names if masks or not n.startswith("mask/")]
+    names = keep(_files(jax_out / SCAN))
+    assert names == keep(_files(port_out / SCAN))
     pfms = [n for n in names if n.endswith(".pfm")]
     # per view: depth and confidence at three stages
     assert len(pfms) == 6 * VIEWS
@@ -111,14 +120,51 @@ def test_other_filters_run(runs, tmp_path, method):
         assert len(read_ply(tmp_path / f"{SCAN}.ply")[0]) > 0
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--share_cr"], "ROADMAP Queue 1 item 12"),
-    (["--grad_method", "undetach"], "ROADMAP Queue 1 item 12"),
-    (["--use_fmt"], "ROADMAP Queue 1 item 11"),
-])
-def test_unsupported_flags_raise(runs, tmp_path, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cli_test.main(cli_args(runs[0], tmp_path, *flags))
+@pytest.fixture(scope="module")
+def fmt_runs(runs):
+    """JAX's depth files of the scene with use_fmt, and the .npz both CLIs
+    load: the trained checkpoint plus a seeded FMT pathway (it has none)."""
+    root = runs[0]
+    torch.manual_seed(0)
+    fmt = {k.replace("params/", "params/fmt_pathway/", 1): v for k, v in
+           port_flax_flat(FMTWithPathway(8), module_table("fmt_pathway")).items()}
+    with np.load(WEIGHTS) as npz:
+        np.savez(root / "fmt_ckpt.npz", **{k: npz[k] for k in npz.files}, **fmt)
+    params, stats = checkpoint_trees(extra_flat=fmt)
+    jmodel = JCascade(ndepths=NDEPTHS, cr_base_chs=(8, 8, 8), compute_dtype=jnp.float32,
+                      clamp_samples=True, use_fmt=True)
+    runner = JRunner(jmodel, {"params": params, "batch_stats": stats}, log_fn=lambda *a: None)
+    dataset = JEvalDataset(str(root / "data"), [SCAN], "test", VIEWS, 192, 1.06,
+                           max_h=H, max_w=W)
+    jsave(runner, dataset, str(root / "jax_fmt"), log_fn=lambda *a: None)
+    return root / "jax_fmt", root / "fmt_ckpt.npz"
+
+
+@pytest.mark.parametrize("flags", [
+    ["--use_fmt"], ["--grad_method", "undetach"], ["--use_fmt", "--grad_method", "undetach"],
+], ids=["use_fmt", "undetach", "use_fmt-undetach"])
+def test_variant_flags_write_jax_depth_files(runs, request, tmp_path, flags):
+    """The CLI builds what the JAX CLI builds from these flags and writes
+    its depth files: with --use_fmt the JAX FMT model's on the same
+    weights; --grad_method only moves training's gradients, so undetached
+    serving writes the default run's files."""
+    root, jax_out, _ = runs
+    args = cli_args(root, tmp_path, "--filter_method", "none", *flags)
+    if "--use_fmt" in flags:
+        jax_out, ckpt = request.getfixturevalue("fmt_runs")
+        args[args.index("--loadckpt") + 1] = str(ckpt)
+    model = cli_test.main(args).model
+    assert model.use_fmt == ("--use_fmt" in flags)
+    assert model.grad_method == ("undetach" if "undetach" in flags else "detach")
+    _assert_same_depth_files(tmp_path, jax_out, masks=False)
+
+
+def test_share_cr_raises_as_jax_does(runs, tmp_path):
+    """One regularizer cannot take the stages' three widths: the port
+    refuses --share_cr where the JAX CLI's model fails at init
+    (tests/test_torch_variants.py holds JAX's failure)."""
+    with pytest.raises(ValueError, match="share_cr: one CostRegNet cannot take"):
+        cli_test.main(cli_args(runs[0], tmp_path, "--share_cr"))
 
 
 def test_port_checkpoint_loads_the_same_weights(runs, tmp_path):

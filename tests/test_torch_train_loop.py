@@ -193,12 +193,18 @@ def test_cli_trains_one_epoch_and_resumes(tiny_synthetic, tmp_path):
     assert resumed.state.step == 4 and resumed.state.epoch == 2
 
 
-@pytest.mark.parametrize("flags", [
-    ["--use_fmt"], ["--profile_dir", "prof"], ["--grad_method", "undetach"], ["--share_cr"],
-])
+@pytest.mark.parametrize("flags", [["--profile_dir", "prof"]])
 def test_cli_raises_on_what_the_port_lacks(tiny_synthetic, tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1[124]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
         cli_train.main(_CLI + ["--epochs", "1", "--logdir", str(tmp_path)] + flags)
+
+
+def test_cli_share_cr_raises_as_jax_does(tiny_synthetic, tmp_path):
+    """One regularizer cannot take the stages' three widths: the port
+    refuses --share_cr where the JAX CLI's model fails at init
+    (tests/test_torch_variants.py holds JAX's failure)."""
+    with pytest.raises(ValueError, match="share_cr: one CostRegNet cannot take"):
+        cli_train.main(_CLI + ["--epochs", "1", "--logdir", str(tmp_path), "--share_cr"])
 
 
 def test_cli_defaults_follow_the_jax_cli():
@@ -214,12 +220,15 @@ def test_cli_defaults_follow_the_jax_cli():
 
 @pytest.mark.parametrize("flags", [
     ["--no_geo_fusion"], ["--cr_base_chs", "4,8,4"], ["--agg_mode", "variance"],
-    ["--fused_train"], ["--dataset", "dtu_yao"],
-], ids=["no_geo_fusion", "cr_base_chs", "variance", "fused_train", "dtu_yao"])
+    ["--fused_train"], ["--dataset", "dtu_yao"], ["--use_fmt"], ["--grad_method", "undetach"],
+    ["--use_fmt", "--grad_method", "undetach", "--fused_train"],
+], ids=["no_geo_fusion", "cr_base_chs", "variance", "fused_train", "dtu_yao", "use_fmt",
+        "undetach", "use_fmt-undetach-fused_train"])
 def test_cli_trains_the_variants(monkeypatch, capsys, request, tmp_path, flags):
     """The CLI builds what the JAX CLI builds from the same flags (without
     ``--fused_train`` the non-fused step on unclamped hypotheses, with it
-    the fused step on clamped ones), and each configuration trains: one
+    the fused step on clamped ones; ``--use_fmt`` the FMT pathway,
+    ``--grad_method`` the handoff), and each configuration trains: one
     step gives a finite loss and moves the parameters. ``dtu_yao`` reads
     the fake DTU tree, its list trimmed to one batch and its samples cut to
     their top-left 64x96 (a crop from the origin keeps the cameras)."""
@@ -247,13 +256,16 @@ def test_cli_trains_the_variants(monkeypatch, capsys, request, tmp_path, flags):
     fused = "--fused_train" in flags
     agg_mode = "variance" if "variance" in flags else "adaptive"
     torch.manual_seed(1)  # the CLI's --seed: the same initial weights
+    grad_method = "undetach" if "undetach" in flags else "detach"
     start = CascadeMVSNet(ndepths=(8, 8, 8), device="cpu", agg_mode=agg_mode,
                           use_geo_fusion="--no_geo_fusion" not in flags,
-                          cr_base_chs=(4, 8, 4) if "--cr_base_chs" in flags else (8, 8, 8))
+                          cr_base_chs=(4, 8, 4) if "--cr_base_chs" in flags else (8, 8, 8),
+                          use_fmt="--use_fmt" in flags, grad_method=grad_method)
     trainer = cli_train.main(argv)
     model = trainer.state.model
     assert trainer.state.step == 1
     assert (model.fused_train, model.clamp_samples, model.agg_mode) == (fused, fused, agg_mode)
+    assert (model.use_fmt, model.grad_method) == ("--use_fmt" in flags, grad_method)
     assert hasattr(model, "GeoFeatureFusionNet") == ("--no_geo_fusion" not in flags)
     start_sd = start.state_dict()
     assert set(model.state_dict()) == set(start_sd)

@@ -116,3 +116,84 @@ def test_model_without_geo_fusion_drops_exactly_its_keys(ckpt, agg_mode):
     np.testing.assert_array_equal(
         sd["feature.out3.weight"].numpy(),
         ckpt["params/feature/out3/kernel"].transpose(3, 2, 0, 1))
+
+
+# ---- the variants' tables (use_fmt, georeg, refine, unet) ----
+
+VARIANTS = {"use_fmt": {"use_fmt": True}, "georeg": {"reg_mode": "georeg"},
+            "refine": {"refine": True}, "unet": {"arch_mode": "unet"}}
+
+
+def _variant_flat(config):
+    """A seeded port model of this configuration, its weights as flat flax
+    variables through the table read backwards."""
+    from damvsnet_tpu_torch.utils.weights import _table
+    from torch_helpers import port_flax_flat
+    torch.manual_seed(0)
+    model = CascadeMVSNet(device="cpu", **config)
+    return model, port_flax_flat(model, _table(**config))
+
+
+def test_transplant_of_fmt_port_state_dict_gives_back_the_flax_variables(ckpt):
+    """The checkpoint plus a seeded FMT pathway, through the bridge into an
+    FMT port model and back through the JAX package's transplant_cascade
+    (use_fmt=True): the same arrays, key for key."""
+    _, flat = _variant_flat({"use_fmt": True})
+    fmt = {k: v for k, v in flat.items() if k.split("/")[1] == "fmt_pathway"}
+    assert len(fmt) == 8 * 16 + 4  # per layer 6 Dense and 2 LayerNorm, 2 arrays each
+    model = CascadeMVSNet(device="cpu", use_fmt=True)
+    model.load_state_dict(state_dict_from_flax({**ckpt, **fmt}, use_fmt=True), strict=True)
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    for head in DEAD_GEO_HEADS:
+        p = f"GeoFeatureFusionNet.{head}"
+        sd[f"{p}.0.weight"] = np.zeros((1, 1, 1, 1), np.float32)
+        for s in ("weight", "bias", "running_mean", "running_var"):
+            sd[f"{p}.1.{s}"] = np.zeros((1,), np.float32)
+        sd[f"{p}.1.num_batches_tracked"] = np.zeros((), np.int64)
+    back = _flat(transplant_cascade(sd, use_fmt=True))
+    extra = {k for k in back if any(h in k for h in DEAD_GEO_HEADS)}
+    assert set(back) - extra == set(ckpt) | set(fmt)
+    for k, v in {**ckpt, **fmt}.items():
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_variant_table_is_strict(variant):
+    """Each new configuration's table takes exactly its model's keys: the
+    full set loads strictly, one missing raises KeyError, one left over
+    ValueError."""
+    config = VARIANTS[variant]
+    model, flat = _variant_flat(config)
+    sd = state_dict_from_flax(flat, **config)
+    assert set(sd) == set(model.state_dict())
+    model.load_state_dict(sd, strict=True)
+    own = [k for k in flat if k.split("/")[1] in
+           {"fmt_pathway", "geo_reg_stage2", "refine_network", "feature"}]
+    missing = dict(flat)
+    del missing[own[-1]]
+    with pytest.raises(KeyError, match=own[-1]):
+        state_dict_from_flax(missing, **config)
+    with pytest.raises(ValueError, match="left over"):
+        state_dict_from_flax({**flat, "params/cost_reg_stage9/prob/kernel": np.zeros(1)},
+                             **config)
+
+
+def test_seeded_modules_keep_their_init(ckpt):
+    """bench_ckpt.npz has no FMT: an FMT model's load raises on the missing
+    keys unless the FMT pathway is named as seeded; then it keeps its init,
+    every other weight loads, and a warning names it."""
+    with pytest.raises(KeyError, match="fmt_pathway"):
+        load_bench_weights(CascadeMVSNet(device="cpu", use_fmt=True), CKPT)
+    torch.manual_seed(0)
+    model = CascadeMVSNet(device="cpu", use_fmt=True)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    with pytest.warns(UserWarning, match="FMT_with_pathway keep their seeded initialisation"):
+        load_bench_weights(model, CKPT, seeded=("FMT_with_pathway",))
+    sd = model.state_dict()
+    fmt = [k for k in sd if k.startswith("FMT_with_pathway.")]
+    assert fmt and all(torch.equal(sd[k], init[k]) for k in fmt)
+    np.testing.assert_array_equal(
+        sd["feature.out3.weight"].numpy(),
+        ckpt["params/feature/out3/kernel"].transpose(3, 2, 0, 1))
+    with pytest.raises(ValueError, match="not modules of the model"):
+        load_bench_weights(CascadeMVSNet(device="cpu"), CKPT, seeded=("FMT_with_pathway",))

@@ -24,21 +24,27 @@ def fused_projs(batch, num_views, height, width, seed=0):
     return fused
 
 
-def port_named(params, batch_stats, agg_mode="adaptive"):
+TABLE_KEYS = ("agg_mode", "use_geo_fusion", "use_fmt", "reg_mode", "refine", "arch_mode")
+
+
+def port_named(params, batch_stats, agg_mode="adaptive", **config):
     """Flax variable trees (``params`` may be a gradient tree of the same
-    structure) of a model with this aggregation -> {the port's state_dict
-    name: numpy array}, through the port's weight bridge
+    structure) of a model of this configuration (``config``: any
+    ``CascadeMVSNet`` fields; those of the weight table are read) -> {the
+    port's state_dict name: numpy array}, through the port's weight bridge
     ``state_dict_from_flax``. JAX is imported here, not at the top: the
     card's test run imports this module without it."""
     import jax
     from damvsnet_tpu_torch.utils.weights import state_dict_from_flax
+
+    table = {k: v for k, v in config.items() if k in TABLE_KEYS}
 
     flat = {}
     for coll, tree in (("params", params), ("batch_stats", batch_stats)):
         for kp, v in jax.tree_util.tree_flatten_with_path(tree)[0]:
             key = "/".join(str(getattr(k, "key", k)) for k in kp)
             flat[f"{coll}/{key}"] = np.asarray(v, np.float32)
-    return {k: v.numpy() for k, v in state_dict_from_flax(flat, agg_mode).items()}
+    return {k: v.numpy() for k, v in state_dict_from_flax(flat, agg_mode, **table).items()}
 
 
 def cascade_batch(seed, batch=1, num_views=3, height=32, width=32, ndepth=16):
@@ -73,6 +79,30 @@ def perturbed_flat(variables, seed=1):
         elif key.endswith("/var"):
             v = v * (1.0 + 0.2 * rs.random(v.shape)).astype(np.float32)
         flat[key] = v
+    return flat
+
+
+def port_flax_flat(port, rows, seed=0):
+    """A port module's weights, its BN running statistics first moved off
+    (0, 1) in place, as flat-path flax variables ("params/...",
+    "batch_stats/...") through the weight bridge's table ``rows`` read
+    backwards: the JAX side then needs no init of its own (a flax init
+    compiles the module once more)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, buf in port.named_buffers():
+            if name.endswith("running_mean"):
+                buf.add_(0.05 * torch.randn(buf.shape, generator=gen))
+            elif name.endswith("running_var"):
+                buf.mul_(1.0 + 0.2 * torch.rand(buf.shape, generator=gen))
+    sd = port.state_dict()
+    flat = {}
+    for tkey, fkey, perm in rows:
+        if fkey is not None:
+            a = sd[tkey].numpy().copy()  # the port updates its buffers in place
+            flat[fkey] = a if perm is None else a.transpose(np.argsort(perm))
     return flat
 
 
@@ -121,12 +151,15 @@ def synthetic_train_batch(scenes, size=32, nviews=3, d0=16):
     return {k: batch[k] for k in ("imgs", "proj_matrices", "depth_values", "depth", "mask")}
 
 
-def checkpoint_trees(agg_mode="adaptive"):
+def checkpoint_trees(agg_mode="adaptive", extra_flat=None):
     """The trained checkpoint as flax (params, batch_stats) trees of a model
-    with this aggregation (a variance model has no weight nets)."""
+    with this aggregation (a variance model has no weight nets), with the
+    flat-path arrays ``extra_flat`` (a seeded module the checkpoint lacks)
+    added."""
     with np.load(TRAIN_WEIGHTS) as npz:
         flat = {k: npz[k] for k in npz.files
                 if agg_mode == "adaptive" or "/agg_weight_stage" not in k}
+    flat.update(extra_flat or {})
     trees = {"params": {}, "batch_stats": {}}
     for key, v in flat.items():
         coll, *path, leaf = key.split("/")
@@ -137,12 +170,13 @@ def checkpoint_trees(agg_mode="adaptive"):
     return trees["params"], trees["batch_stats"]
 
 
-def jax_train_step(batch, ndepths, **config):
+def jax_train_step(batch, ndepths, extra_flat=None, **config):
     """``jax.value_and_grad`` of ``cas_mvsnet_loss(use_cpc=True)`` under
     ``train=True, mutable=["batch_stats"]`` for ``CascadeMVSNet(ndepths,
-    **config)`` on the trained checkpoint, with flax's batch variance
-    two-pass: (params, stats, {"losses": [total, depth, cpc], "grads",
-    "stats": the updated statistics and the params, by port name})."""
+    **config)`` on the trained checkpoint (plus ``extra_flat``), with flax's
+    batch variance two-pass: (params, stats, {"losses": [total, depth,
+    cpc], "grads", "stats": the updated statistics and the params, by port
+    name})."""
     import jax
     import jax.numpy as jnp
     from damvsnet_tpu.losses import cas_mvsnet_loss
@@ -150,7 +184,9 @@ def jax_train_step(batch, ndepths, **config):
 
     agg_mode = config.get("agg_mode", "adaptive")
     jb = jax.tree_util.tree_map(jnp.asarray, batch)
-    params, stats = checkpoint_trees(agg_mode)
+    params, stats = checkpoint_trees(agg_mode, extra_flat)
+    if not config.get("use_geo_fusion", True):
+        params.pop("geo_fusion"), stats.pop("geo_fusion")
     model = CascadeMVSNet(ndepths=ndepths, **config)
 
     def loss_fn(params, stats):
@@ -165,8 +201,8 @@ def jax_train_step(batch, ndepths, **config):
         (total, (depth_loss, cpc, new_stats)), grads = jax.jit(
             jax.value_and_grad(loss_fn, has_aux=True))(params, stats)
     want = {"losses": np.array([total, depth_loss, cpc], np.float32),
-            "grads": port_named(grads, stats, agg_mode),
-            "stats": port_named(params, new_stats, agg_mode)}
+            "grads": port_named(grads, stats, **config),
+            "stats": port_named(params, new_stats, **config)}
     return params, stats, want
 
 
@@ -174,15 +210,16 @@ def port_train_step(batch, params, stats, ndepths, **config):
     """The port's step on the same weights and inputs: ``model.train()``,
     the forward, the loss, ``backward()`` (on CPU tensors, with no kernel
     launched). Returns {"losses", "model", "before": the state_dict before
-    the step}."""
+    the step, "min_sigma": the smallest 3-sigma band of any stage}."""
     import torch
     from damvsnet_tpu_torch.losses import cas_mvsnet_loss
     from damvsnet_tpu_torch.model import CascadeMVSNet
     from damvsnet_tpu_torch.ops.kernels import fused_costvol, probstats, sweep_sampler
+    from damvsnet_tpu_torch.utils.weights import model_config
 
     model = CascadeMVSNet(ndepths=ndepths, device="cpu", **config)
     model.load_state_dict({k: torch.from_numpy(v.copy()) for k, v in
-                           port_named(params, stats, model.agg_mode).items()})
+                           port_named(params, stats, **model_config(model)).items()})
     before = {k: v.clone() for k, v in model.state_dict().items()}
     tb = {k: ({s: torch.from_numpy(a) for s, a in v.items()} if isinstance(v, dict)
               else torch.from_numpy(v)) for k, v in batch.items()}
@@ -200,8 +237,9 @@ def port_train_step(batch, params, stats, ndepths, **config):
                                  tb["mask"], use_cpc=True)
         losses[0].backward()
     assert counts == [fn.launches for fn in counters]
+    min_sigma = min(float(out[f"stage{s}"]["variance"].detach().min()) for s in (1, 2, 3))
     return {"losses": np.array([float(x.detach()) for x in losses], np.float32),
-            "model": model, "before": before}
+            "model": model, "before": before, "min_sigma": min_sigma}
 
 
 def assert_gradients_match(want, got, group=lambda name: name):
