@@ -103,6 +103,38 @@ without printing its result line:
      at phase 5's limit, and their gap in bf16 beside the one-ulp floor (a
      record); the peak memory.
 
+ 17. data-parallel fused training: phase 7's step on 2 ranks (processes of
+     this script with torchrun's environment, gloo over CUDA tensors on the
+     one card: NCCL puts at most one rank on a card), global B=4, 2 rows a
+     rank: 1 warm and 3 timed steps, every counter set to 0 just before and
+     read just after in each rank (K1 and K3 3 times a step in each), one
+     more step profiled for its collectives; then one fp32 step (TF32 off)
+     of the two ranks against the one-process B=4 step on the same batch,
+     on the kernels (loss at STEP_LOSS_RTOL, gradient relative L2 at
+     STEP_GRAD_L2, running statistics at DDP_STATS_RTOL) and on their plain
+     versions (loss and gradient at the same limits: the ranks' K1 and K3
+     launches at 2 rows a rank held against the plain route); then one
+     fused step under NCCL, the
+     default backend, at world size 1;
+ 18. the training CLI on 2 ranks (``--dataset synthetic --fused_train``,
+     128x160, one epoch of 2 global batches, ``--profile_dir``): one
+     checkpoint (rank 0's), one event file whose records and CRCs parse,
+     one profiler trace per rank; then a 1-rank ``--resume`` from it;
+ 19. the scan-parallel test CLI: 2 ranks over 2 scenes at phase 13's flags
+     (each rank one scene, K1 and K2 3 times a view), ownership disjoint and
+     complete, the depth and confidence files against one process over the
+     same scenes (bitwise, or the depth's p999 within phase 5's limit);
+ 20. FMT serving with sequence parallelism: phase 14's request on 2 ranks,
+     31,104 of the 62,208 stage-1 tokens each: 1 warm-up and 3 timed
+     requests with the counters (K1 and K2 3 times a request in each rank),
+     one more profiled for its collectives; the depth against the
+     one-process forward at phase 14's limit in bf16 and FMT_SP_FP32_TOL in
+     fp32, and a control that must fail that fp32 limit: the request with
+     the attention's all-reduce left out.
+
+The two ranks share the card's SMs and gloo copies every collective
+through the host: their times record the paths, not a scaling.
+
 ``share_cr`` builds in neither package (one regularizer cannot take the
 stages' three widths), so no phase runs it.
 
@@ -211,6 +243,23 @@ NONFUSED_STEPS, VARIANCE_STEPS = 3, 2
 # U-Net gradient by more than this relative L2 against the detached step's
 VARIANT_STEPS, UNDETACH_MIN_CHANGE = 2, 1e-3
 SMALL_H, SMALL_W, SMALL_NVIEWS, SMALL_D0, SMALL_NDEPTHS = 64, 64, 3, 16, (8, 8, 8)
+# phases 17-20: two ranks (processes of this script) on the one card; each
+# child's time limit, and gloo's for one collective, in seconds
+RANKS, CHILD_TIMEOUT, GLOO_TIMEOUT = 2, 420, 180
+# phase 17: the ranks' running statistics against one process, relative to
+# each tensor's largest entry (both reduce fp32 sums, in other orders)
+DDP_STATS_RTOL = 1e-5
+# phase 20: the fp32 depth of the sequence-parallel FMT request against the
+# one-process forward, p999 of |difference|. The sound path's gap is the
+# order of the sums alone; a planted fault (the attention's all-reduce left
+# out) must exceed the limit in every run (PERF.md section 6, PR 9).
+FMT_SP_FP32_TOL = 1e-3
+# phase 18: the training CLI's synthetic samples, 2 global batches
+CLI_TRAIN_H, CLI_TRAIN_W, CLI_TRAIN_SAMPLES = 128, 160, 8
+# phase 19: the scan-parallel test CLI's scenes (phase 13's, seeds 3 and 4)
+SCAN_SCENES = ["scan_a", "scan_b"]
+# the step's image summaries, the JAX step's keys
+IMAGE_KEYS = ("depth_est", "depth_gt", "ref_img", "mask", "errormap", "photometric_confidence")
 # name keys of the kernels in profiler traces; the template argument after
 # the dtype is C, which names the stage (C = 32 / 16 / 8 at stages 1 / 2 / 3)
 K1_KERNEL, K2_KERNEL, K3_KERNEL, K4_KERNEL, K4_VARIANCE_KERNEL = (
@@ -777,6 +826,7 @@ def timed_training(dev, path, steps, seeded=(), **config):
         metrics = step(state, batch)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.pop("_images")
         losses.append({k: float(v) for k, v in metrics.items()})
     launches = read_counters()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1499,11 +1549,603 @@ def phase_variant_serving(sample, dev):
     return launches, float(np.mean(times)), peak_gib
 
 
+# ---- phases 17-20: ranks, each a process of this script on the one card ----
+#
+# NCCL refuses two ranks on one card, so the two-rank phases run gloo over
+# CUDA tensors on cuda:0 (gloo copies each collective through the host);
+# the ranks share the card's SMs, so their step times record the path and
+# are no scaling figure. Phase 17 also steps once under NCCL at world size
+# 1. Each child is a fresh process (``python3 chip_smoke.py --rank-child
+# <phase> <workdir>``) with torchrun's environment, a time limit of its own
+# and gloo's timeout; it prints its results as the last line of its output
+# ("RESULT {json}"), its launch counters among them.
+
+
+def free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def spawn_ranks(phase, workdir, world=RANKS, distributed=True):
+    """``world`` children of this script for ``phase``, started together;
+    returns their RESULT dicts in rank order. A child that fails, or
+    outlasts CHILD_TIMEOUT, fails the smoke with the tail of its output."""
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+        if distributed:
+            env.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        log = open(os.path.join(workdir, f"{phase}_rank{rank}.log"), "w")
+        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank-child",
+                                        phase, workdir], env=env, stdout=log,
+                                       stderr=subprocess.STDOUT), log))
+    deadline = time.monotonic() + CHILD_TIMEOUT
+    try:
+        # a child that fails ends the others (they would wait in a collective)
+        while any(p.poll() is None for p, _ in procs):
+            if time.monotonic() > deadline or any(p.poll() not in (None, 0) for p, _ in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    results, failed = [], []
+    for rank, (p, log) in enumerate(procs):
+        text = open(log.name).read()
+        lines = [ln for ln in text.splitlines() if ln.startswith("RESULT ")]
+        if p.returncode != 0 or not lines:
+            print(f"--- {phase} rank {rank}, exit {p.returncode}, its output's tail:\n"
+                  f"{text[-4000:]}", flush=True)
+            failed.append(f"rank {rank} exited with {p.returncode}")
+        else:
+            results.append(json.loads(lines[-1][len("RESULT "):]))
+    check(not failed, f"{phase}: {', '.join(failed)}")
+    return results
+
+
+def child_device(backend="gloo"):
+    import torch
+    from damvsnet_tpu_torch.parallel import local_device, maybe_initialize_distributed
+    rank, world = maybe_initialize_distributed(backend, timeout=GLOO_TIMEOUT)
+    dev = local_device()
+    torch.cuda.set_device(dev)
+    return rank, world, dev
+
+
+def collective_profile(fn):
+    """Host time and count of every collective in one call of ``fn`` (the
+    profiler's CPU ops whose names hold a collective's), and the call's
+    host time under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    keys = ("allreduce", "allgather", "all_reduce", "all_gather", "broadcast", "barrier")
+    rows = {e.key: {"count": e.count, "cpu_ms": e.cpu_time_total / 1e3}
+            for e in prof.key_averages() if any(k in e.key.lower() for k in keys)}
+    return {"profiled_wall_ms": wall, "ops": rows}
+
+
+def train_rows(i, rows):
+    """Rows ``rows`` of global training batch i (samples TRAIN_B*i + row)."""
+    return train_batch([TRAIN_B * i + r for r in rows])
+
+
+def ddp_model(dev, dtype):
+    import torch
+    from damvsnet_tpu_torch.model import CascadeMVSNet
+    from damvsnet_tpu_torch.utils.weights import load_bench_weights
+    torch.manual_seed(SEED)
+    model = CascadeMVSNet(ndepths=NDEPTHS, compute_dtype=dtype, device=dev, fused_train=True)
+    load_bench_weights(model, SERVING_WEIGHTS)
+    return model
+
+
+def fp32_step_result(model, batch, dev, mesh):
+    """One fp32 step (TF32 off) under SGD with lr 0 through make_train_step:
+    (metrics, {name: gradient}, {running statistics}) on the host."""
+    import torch
+    from damvsnet_tpu_torch.train.loop import make_train_step
+    from damvsnet_tpu_torch.train.state import TrainState
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    state = TrainState(model, torch.optim.SGD(model.parameters(), lr=0.0))
+    metrics = make_train_step(device=dev, mesh=mesh)(state, batch)
+    metrics.pop("_images")
+    return ({k: float(v) for k, v in metrics.items()},
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            {k: v.detach().cpu() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))})
+
+
+def child_ddp_train(workdir, backend="gloo"):
+    """Phase 17, a rank: 1 warm and TRAIN_STEPS timed bf16 fused steps on
+    its rows of each global batch, the counters set to 0 just before and
+    read just after; one more step profiled for its collectives; then one
+    fp32 step from the trained weights (rank 0 saves its gradients).
+    backend None: the default, NCCL, a card a rank."""
+    import torch
+    from damvsnet_tpu_torch.parallel import batch_rows, make_mesh
+    from damvsnet_tpu_torch.train.loop import make_train_step
+    from damvsnet_tpu_torch.train.schedule import make_optimizer
+    from damvsnet_tpu_torch.train.state import TrainState
+    rank, world, dev = child_device(backend)
+    mesh = make_mesh()
+    rows = batch_rows(TRAIN_B, mesh.data_rank, mesh.data)
+    model = ddp_model(dev, torch.bfloat16)
+    optimizer, scheduler = make_optimizer(model.parameters(), 1e-3, "10,12,14:2",
+                                          iters_per_epoch=1000)
+    state = TrainState(model, optimizer, scheduler)
+    step = make_train_step(device=dev, mesh=mesh)
+    batches = [train_rows(i, rows) for i in range(TRAIN_STEPS + 1)]
+    t0 = time.perf_counter()
+    step(state, batches[0])
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    reset_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.pop("_images")
+        losses.append({k: float(v) for k, v in metrics.items()})
+    launches = read_counters()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    collectives = collective_profile(lambda: step(state, batches[1]))
+    del state, step, optimizer, scheduler, model
+    torch.cuda.empty_cache()
+    metrics, grads, stats = fp32_step_result(ddp_model(dev, torch.float32), batches[1], dev, mesh)
+    if rank == 0:
+        torch.save({"metrics": metrics, "grads": grads, "stats": stats},
+                   os.path.join(workdir, "ddp_fp32.pt"))
+    return {"rank": rank, "world": world, "rows": rows, "warmup_ms": warm_ms,
+            "step_ms": step_ms, "metrics": losses, "launches": launches,
+            "peak_mem_gib": peak_gib, "collectives": collectives}
+
+
+def child_nccl_step(workdir):
+    """Phase 17, NCCL at world size 1: the default backend initializes, a
+    fused bf16 step runs on the rank's card, and an all-reduce and a
+    barrier pass over NCCL."""
+    import torch
+    import torch.distributed as dist
+    from damvsnet_tpu_torch.parallel import make_mesh
+    from damvsnet_tpu_torch.train.loop import make_train_step
+    from damvsnet_tpu_torch.train.state import TrainState
+    rank, world, dev = child_device(backend=None)
+    model = ddp_model(dev, torch.bfloat16)
+    state = TrainState(model, torch.optim.Adam(model.parameters(), lr=1e-4))
+    reset_counters()
+    metrics = make_train_step(device=dev, mesh=make_mesh())(state, train_rows(0, range(2)))
+    launches = read_counters()
+    loss = metrics["loss"].float().reshape(1)
+    dist.all_reduce(loss)
+    dist.barrier()
+    torch.cuda.synchronize()
+    return {"backend": dist.get_backend(), "world": world, "loss": float(loss),
+            "launches": launches}
+
+
+def child_train_cli(workdir):
+    """Phase 18, a rank (or, without a process group, the 1-rank resume):
+    the training CLI on the synthetic scenes at 128x160, 8 samples."""
+    import functools
+    from damvsnet_tpu_torch import data as port_data
+    from damvsnet_tpu_torch.cli import train as cli_train
+    from damvsnet_tpu_torch.data import SyntheticDataset
+    port_data._REGISTRY["synthetic"] = functools.partial(
+        SyntheticDataset, height=CLI_TRAIN_H, width=CLI_TRAIN_W, length=CLI_TRAIN_SAMPLES)
+    resume = "WORLD_SIZE" not in os.environ
+    argv = ["--dataset", "synthetic", "--fused_train", "--batch_size", str(TRAIN_B),
+            "--nviews", str(NVIEWS), "--numdepth", str(D0),
+            "--ndepths", ",".join(map(str, NDEPTHS)), "--num_workers", "0", "--summary_freq", "1",
+            "--logdir", os.path.join(workdir, "train_run")]
+    if resume:
+        argv += ["--epochs", "2", "--resume"]
+    else:
+        argv += ["--epochs", "1", "--dist_backend", "gloo", "--profile_dir",
+                 os.path.join(workdir, "train_prof")]
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        trainer = cli_train.main(argv)
+    print(log.getvalue(), flush=True)
+    return {"step": trainer.state.step, "epoch": trainer.state.epoch, "log": log.getvalue()}
+
+
+def record_scenes():
+    """(the scenes this process built a loader for, the context that
+    records them): data.find_dataset_def wrapped."""
+    from damvsnet_tpu_torch import data
+    owned, inner = [], data.find_dataset_def
+
+    def recording(name):
+        cls = inner(name)
+
+        def build(datapath, scenes, *args, **kwargs):
+            owned.extend(scenes)
+            return cls(datapath, scenes, *args, **kwargs)
+        return build
+
+    @contextlib.contextmanager
+    def ctx():
+        data.find_dataset_def = recording
+        try:
+            yield
+        finally:
+            data.find_dataset_def = inner
+    return owned, ctx()
+
+
+def scan_cli_argv(datapath, testlist, outdir):
+    return ["--dataset", "general_eval", "--testpath", datapath, "--testlist", testlist,
+            "--outdir", outdir, "--num_view", str(NVIEWS), "--numdepth", str(D0),
+            "--max_h", str(HEIGHT), "--max_w", str(WIDTH),
+            "--ndepths", ",".join(map(str, NDEPTHS)), "--loadckpt", SERVING_WEIGHTS,
+            "--filter_method", "consistency", "--conf", EVAL_CONF]
+
+
+def child_test_cli(workdir):
+    """Phase 19, a rank: the test CLI over the list, scan-parallel."""
+    import torch
+    rank, world, dev = child_device()
+    owned, recording = record_scenes()
+    log = io.StringIO()
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with numpy_image_codec(), recording, contextlib.redirect_stdout(log):
+        cli_test_main(scan_cli_argv(os.path.join(workdir, "scan_data"),
+                                    os.path.join(workdir, "scan_list.txt"),
+                                    os.path.join(workdir, "scan_mp")) + ["--dist_backend", "gloo"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counters()
+    print(log.getvalue(), flush=True)
+    m = re.search(r"([0-9.]+)s/view steady", log.getvalue())
+    return {"rank": rank, "scenes": owned, "launches": launches, "cli_s": cli_s,
+            "s_per_view_steady": float(m.group(1)) if m else None,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def cli_test_main(argv):
+    from damvsnet_tpu_torch.cli import test as cli_test
+    return cli_test.main(argv)
+
+
+def child_fmt_sp(workdir):
+    """Phase 20, a rank: phase 14's request on the seeded FMT model whose
+    attention runs sequence-parallel over the two ranks: 1 warm-up and
+    REQUESTS timed requests with the counters, one profiled for its
+    collectives, then the depth in bf16 and fp32 (TF32 off) saved, and a
+    control: the fp32 depth once more with the attention's all-reduce left
+    out (a planted fault: each rank attends to its own half of the tokens
+    only), which phase 20's fp32 limit must refuse."""
+    import numpy as np
+    import torch
+    from damvsnet_tpu_torch.data.synthetic import make_synthetic_sample
+    from damvsnet_tpu_torch.infer import DepthRunner
+    from damvsnet_tpu_torch.parallel import make_mesh
+    from damvsnet_tpu_torch.model import CascadeMVSNet
+    from damvsnet_tpu_torch.utils.weights import load_bench_weights
+    rank, world, dev = child_device()
+    group = make_mesh(data=1, space=world).space_group
+    torch.manual_seed(SEED)  # phase 14's seeded FMT, on every rank
+    model = CascadeMVSNet(ndepths=NDEPTHS, compute_dtype=torch.bfloat16, device=dev,
+                          use_fmt=True, fmt_sp_group=group)
+    load_bench_weights(model, SERVING_WEIGHTS, ("FMT_with_pathway",))
+    sample = make_synthetic_sample(height=HEIGHT, width=WIDTH, nviews=NVIEWS, ndepths=D0,
+                                   with_gt=True, seed=SEED)
+    batch = serving_batch(sample)
+    runner = DepthRunner(model, device=dev)
+    warm_ms, times, out, launches, peak_gib = timed_requests(runner, batch)
+    collectives = collective_profile(lambda: runner(batch))
+    depth = {"bf16": out["depth"]}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model.compute_dtype = torch.float32
+    depth["fp32"] = runner(batch)["depth"]
+    from damvsnet_tpu_torch.parallel import fmt_sp
+    sound = fmt_sp.all_reduce_sum
+    fmt_sp.all_reduce_sum = lambda partial, group: partial
+    try:
+        depth["fp32_fault"] = runner(batch)["depth"]
+    finally:
+        fmt_sp.all_reduce_sum = sound
+    if rank == 0:
+        np.savez(os.path.join(workdir, "fmt_sp_depth.npz"), **depth)
+    return {"rank": rank, "tokens_per_rank": (HEIGHT // 4) * (WIDTH // 4) // world,
+            "warmup_ms": warm_ms, "request_ms": times, "launches": launches,
+            "peak_mem_gib": peak_gib, "collectives": collectives}
+
+
+RANK_CHILDREN = {"ddp_train": child_ddp_train,
+                 "ddp_train_nccl": lambda workdir: child_ddp_train(workdir, backend=None),
+                 "nccl_step": child_nccl_step,
+                 "train_cli": child_train_cli, "test_cli": child_test_cli,
+                 "fmt_sp": child_fmt_sp}
+
+
+def rank_child(phase, workdir):
+    result = RANK_CHILDREN[phase](workdir)
+    print("RESULT " + json.dumps(result), flush=True)
+    return 0
+
+
+def sum_launches(results):
+    out = {}
+    for r in results:
+        for k, v in r["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def grad_rel_l2(got, want):
+    """||got - want|| / ||want|| over every tensor of two {name: gradient}."""
+    num = sum(float(((got[k] - g) ** 2).sum()) for k, g in want.items())
+    den = sum(float((g ** 2).sum()) for g in want.values())
+    return math.sqrt(num / max(den, 1e-30))
+
+
+def phase_ddp_train(dev, smi, workdir, world=RANKS, backend="gloo"):
+    """Phase 17: ``world`` ranks of ``backend`` (gloo: all on this card,
+    then one NCCL step at world size 1; nccl: a card a rank). Returns
+    ({counter: launches} summed over the ranks, the summary)."""
+    import torch
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks("ddp_train" if backend == "gloo" else "ddp_train_nccl", workdir, world)
+    for r in ranks:
+        check_launches(f"DDP training rank {r['rank']}", r["launches"],
+                       {"fused_adaptive_cost_volume": 3,
+                        "fused_adaptive_cost_volume_backward": 3}, TRAIN_STEPS)
+        for m in r["metrics"]:
+            check(all(math.isfinite(v) for v in m.values()), f"DDP step metrics {m}")
+    check(all(r["metrics"] == ranks[0]["metrics"] for r in ranks),
+          "the ranks' averaged metrics differ")
+    # the same fp32 step in one process on the whole global batch, on the
+    # kernels and on their plain versions: the ranks' K1 and K3 launches, at
+    # their rows a rank, are held against the plain route directly
+    got = torch.load(os.path.join(workdir, "ddp_fp32.pt"))
+    global_batch = train_batch(range(TRAIN_B, 2 * TRAIN_B))
+    metrics, grads, stats = fp32_step_result(ddp_model(dev, torch.float32), global_batch,
+                                             dev, None)
+    torch.cuda.empty_cache()
+    plain_model = ddp_model(dev, torch.float32)
+    plain_model.plain = True
+    plain_metrics, plain_grads, _ = fp32_step_result(plain_model, global_batch, dev, None)
+    del plain_model
+    torch.cuda.empty_cache()
+    stats_rel = max(float((got["stats"][k] - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+                    for k, v in stats.items())
+    parity = {"loss_ranks": got["metrics"]["loss"], "loss_one_process": metrics["loss"],
+              "grad_rel_l2": grad_rel_l2(got["grads"], grads),
+              "loss_one_process_plain": plain_metrics["loss"],
+              "grad_rel_l2_vs_plain": grad_rel_l2(got["grads"], plain_grads),
+              "running_stats_max_rel": stats_rel,
+              "tol": {"loss_rtol": STEP_LOSS_RTOL, "grad_rel_l2": STEP_GRAD_L2,
+                      "running_stats_rel": DDP_STATS_RTOL}}
+    nccl = None
+    if backend == "gloo":
+        nccl = spawn_ranks("nccl_step", workdir, world=1)[0]
+        check(nccl["backend"] == "nccl", f"the default backend on the card is {nccl['backend']}")
+        check_launches("NCCL world-1 step", nccl["launches"],
+                       {"fused_adaptive_cost_volume": 3,
+                        "fused_adaptive_cost_volume_backward": 3}, 1)
+        check(math.isfinite(nccl["loss"]), f"NCCL step loss {nccl['loss']}")
+    launches = sum_launches(ranks)
+    summary = {"ranks": [{k: r[k] for k in ("rank", "rows", "warmup_ms", "step_ms",
+                                            "peak_mem_gib", "collectives", "launches")}
+                         for r in ranks],
+               "fp32_vs_one_process": parity, "nccl_world1": nccl, "card": smi}
+    print(f"training DDP ({world} {backend} ranks)", json.dumps(summary), flush=True)
+    check(abs(parity["loss_ranks"] - parity["loss_one_process"])
+          <= STEP_LOSS_RTOL * abs(parity["loss_one_process"]),
+          f"DDP fp32 loss {parity['loss_ranks']} vs one process {parity['loss_one_process']}")
+    check(parity["grad_rel_l2"] <= STEP_GRAD_L2,
+          f"DDP fp32 gradient relative L2 {parity['grad_rel_l2']} > {STEP_GRAD_L2}")
+    check(abs(parity["loss_ranks"] - parity["loss_one_process_plain"])
+          <= STEP_LOSS_RTOL * abs(parity["loss_one_process_plain"]),
+          f"DDP fp32 loss {parity['loss_ranks']} vs the plain route in one process "
+          f"{parity['loss_one_process_plain']}")
+    check(parity["grad_rel_l2_vs_plain"] <= STEP_GRAD_L2,
+          f"DDP fp32 gradient relative L2 against the plain route "
+          f"{parity['grad_rel_l2_vs_plain']} > {STEP_GRAD_L2}")
+    check(stats_rel <= DDP_STATS_RTOL, f"DDP running statistics off by {stats_rel}")
+    return launches, summary
+
+
+def varint(b, i):
+    """(value, next offset) of the protobuf varint at b[i]."""
+    v = shift = 0
+    while True:
+        v |= (b[i] & 0x7F) << shift
+        i += 1
+        if not b[i - 1] & 0x80:
+            return v, i
+        shift += 7
+
+
+def read_event_tags(path):
+    """Every record of a TensorBoard event file, its length and data CRCs
+    checked (the TFRecord framing the JAX package writes), and the tag of
+    each Event's summary value (wall_time 1, step 2, summary 5 { value 1 {
+    tag 1 } })."""
+    import struct
+    from damvsnet_tpu_torch.train.logging import _masked_crc32c
+    blob = open(path, "rb").read()
+    tags, i = [], 0
+    while i < len(blob):
+        header = blob[i:i + 8]
+        (n,) = struct.unpack("<Q", header)
+        check(struct.unpack("<I", blob[i + 8:i + 12])[0] == _masked_crc32c(header),
+              f"{path}: a record's length CRC")
+        event = blob[i + 12:i + 12 + n]
+        check(struct.unpack("<I", blob[i + 12 + n:i + 16 + n])[0] == _masked_crc32c(event),
+              f"{path}: a record's data CRC")
+        check(event[0] == 0x09 and event[9] == 0x10, f"{path}: an event's wall_time, step")
+        _, j = varint(event, 10)
+        check(event[j] == 0x2A, f"{path}: an event without a summary")
+        _, j = varint(event, j + 1)  # the summary's length
+        check(event[j] == 0x0A, f"{path}: a summary without a value")
+        _, j = varint(event, j + 1)  # the value's length
+        check(event[j] == 0x0A, f"{path}: a value without a tag")
+        tn, j = varint(event, j + 1)
+        tags.append(event[j:j + tn].decode())
+        i += 16 + n
+    return tags
+
+
+def phase_train_cli(smi, workdir):
+    """Phase 18: the training CLI on 2 ranks with --profile_dir, then a
+    1-rank --resume."""
+    runs = spawn_ranks("train_cli", workdir)
+    logdir = os.path.join(workdir, "train_run")
+    ckpts = sorted(f for f in os.listdir(logdir) if f.startswith("ckpt_"))
+    events = [f for f in os.listdir(logdir) if f.startswith("events.out.tfevents")]
+    traces = sorted(os.listdir(os.path.join(workdir, "train_prof")))
+    check(ckpts == ["ckpt_000001.pt"], f"checkpoints after the 2-rank epoch: {ckpts}")
+    check(len(events) == 1, f"event files (rank 0 alone writes): {events}")
+    check(traces == ["trace_rank0.json", "trace_rank1.json"], f"profiler traces: {traces}")
+    kernels_traced = []
+    for t in traces:
+        with open(os.path.join(workdir, "train_prof", t)) as f:
+            trace = json.load(f)
+        kernels_traced.append(sum(e.get("cat") == "kernel" for e in trace["traceEvents"]))
+    check(all(kernels_traced), f"device kernels in the ranks' traces: {kernels_traced}")
+    tags = read_event_tags(os.path.join(logdir, events[0]))
+    steps = 6 + CLI_TRAIN_SAMPLES // TRAIN_B
+    check(tags.count("train/loss") == CLI_TRAIN_SAMPLES // TRAIN_B,
+          f"train/loss events: {tags.count('train/loss')}")
+    check([r["step"] for r in runs] == [steps] * RANKS, f"steps {[r['step'] for r in runs]}")
+    resumed = spawn_ranks("train_cli", workdir, world=1, distributed=False)[0]
+    check("resumed from" in resumed["log"] and "ckpt_000001.pt" in resumed["log"],
+          "the 1-rank run did not resume from the 2-rank checkpoint")
+    check((resumed["step"], resumed["epoch"]) == (steps + CLI_TRAIN_SAMPLES // TRAIN_B, 2),
+          f"1-rank resume ended at step {resumed['step']}, epoch {resumed['epoch']}")
+    summary = {"checkpoints": ckpts, "event_tags": sorted(set(tags)),
+               "image_events": sum(t.startswith("train/") and t[6:] in IMAGE_KEYS for t in tags),
+               "trace_kernel_events": kernels_traced, "steps": steps,
+               "resumed": {"step": resumed["step"], "epoch": resumed["epoch"]}, "card": smi}
+    print("training CLI (2 gloo ranks, then 1-rank resume)", json.dumps(summary), flush=True)
+    return summary
+
+
+def phase_scan_parallel(dev, smi, workdir, tol):
+    """Phase 19: the test CLI over 2 scenes on 2 ranks against one process
+    over the same scenes, the depth held to ``tol`` where it is not bitwise
+    equal. Returns ({counter: launches} summed, summary)."""
+    import numpy as np
+    from damvsnet_tpu_torch.core.pfm import read_pfm
+    from damvsnet_tpu_torch.data.synthetic import export_synthetic_scene
+    datapath = os.path.join(workdir, "scan_data")
+    with numpy_image_codec():
+        for i, scan in enumerate(SCAN_SCENES):
+            export_synthetic_scene(datapath, scan=scan, height=HEIGHT, width=WIDTH,
+                                   nviews=EVAL_VIEWS, seed=SEED + i, num_depth=D0)
+    with open(os.path.join(workdir, "scan_list.txt"), "w") as f:
+        f.write("".join(f"{s}\n" for s in SCAN_SCENES))
+    ranks = spawn_ranks("test_cli", workdir)
+    owned = [r["scenes"] for r in ranks]
+    check(sorted(s for o in owned for s in o) == SCAN_SCENES and not set(owned[0]) & set(owned[1]),
+          f"scene ownership {owned}")
+    for r in ranks:
+        check_launches(f"scan-parallel CLI rank {r['rank']}", r["launches"],
+                       {"fused_adaptive_cost_volume": 3, "prob_volume_stats_fused": 3},
+                       EVAL_VIEWS * len(r["scenes"]))
+    with numpy_image_codec(), contextlib.redirect_stdout(io.StringIO()):
+        cli_test_main(scan_cli_argv(datapath, os.path.join(workdir, "scan_list.txt"),
+                                    os.path.join(workdir, "scan_sp")))
+    bitwise, worst = True, 0.0
+    for scan in SCAN_SCENES:
+        for sub in ("depth_est", "confidence"):
+            for name in sorted(os.listdir(os.path.join(workdir, "scan_sp", scan, sub))):
+                a = read_pfm(os.path.join(workdir, "scan_mp", scan, sub, name))[0]
+                b = read_pfm(os.path.join(workdir, "scan_sp", scan, sub, name))[0]
+                bitwise &= bool(np.array_equal(a, b))
+                if sub == "depth_est" and "_stage" not in name:
+                    worst = max(worst, float(np.quantile(np.abs(a - b), 0.999)))
+    summary = {"ownership": owned, "bitwise_equal": bitwise, "depth_p999_vs_one_process": worst,
+               "tol": tol,
+               "ranks": [{k: r[k] for k in ("rank", "cli_s", "s_per_view_steady",
+                                            "peak_mem_gib", "launches")} for r in ranks],
+               "card": smi}
+    print("test CLI scan-parallel (2 gloo ranks)", json.dumps(summary), flush=True)
+    check(bitwise or worst <= tol,
+          f"scan-parallel depth p999 {worst} against one process")
+    return sum_launches(ranks), summary
+
+
+def phase_fmt_sp(sample, dev, smi, workdir, fmt_tol):
+    """Phase 20: phase 14's FMT request with the attention sequence-parallel
+    over 2 ranks, against the one-process forward (bf16 at phase 14's
+    limit, fp32 at FMT_SP_FP32_TOL, which the planted fault must exceed).
+    Returns ({counter: launches} summed, summary)."""
+    import numpy as np
+    import torch
+    from damvsnet_tpu_torch.infer import DepthRunner
+    model = seeded_model(dev, ("FMT_with_pathway",), use_fmt=True)
+    runner = DepthRunner(model, device=dev)
+    batch = serving_batch(sample)
+    want = {"bf16": runner(batch)["depth"]}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model.compute_dtype = torch.float32
+    want["fp32"] = runner(batch)["depth"]
+    del runner, model
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks("fmt_sp", workdir)
+    for r in ranks:
+        check_launches(f"FMT sequence-parallel rank {r['rank']}", r["launches"],
+                       {"fused_adaptive_cost_volume": 3, "prob_volume_stats_fused": 3},
+                       REQUESTS)
+    got = np.load(os.path.join(workdir, "fmt_sp_depth.npz"))
+    parity = {}
+    for tag, ref, tol in (("bf16", "bf16", fmt_tol), ("fp32", "fp32", FMT_SP_FP32_TOL),
+                          ("fp32_fault", "fp32", FMT_SP_FP32_TOL)):
+        check(got[tag].shape == want[ref].shape, f"FMT sequence-parallel {tag} depth: "
+              f"shape {got[tag].shape}")
+        check(tag == "fp32_fault" or bool(np.isfinite(got[tag]).all()),
+              f"FMT sequence-parallel {tag} depth: non-finite values")
+        diff = np.abs(got[tag] - want[ref])
+        parity[tag] = {"p999_abs": float(np.quantile(diff, 0.999)),
+                       "max_abs": float(diff.max()), "tol": tol}
+    summary = {"ranks": [{k: r[k] for k in ("rank", "tokens_per_rank", "warmup_ms",
+                                            "request_ms", "peak_mem_gib", "collectives",
+                                            "launches")} for r in ranks],
+               "parity_vs_one_process": parity, "card": smi}
+    print("FMT serving, sequence-parallel (2 gloo ranks)", json.dumps(summary), flush=True)
+    for tag in ("bf16", "fp32"):
+        p = parity[tag]
+        check(p["p999_abs"] <= p["tol"], f"FMT sequence-parallel {tag}: depth p999 "
+              f"{p['p999_abs']} > {p['tol']}")
+    fault = parity["fp32_fault"]
+    check(not fault["p999_abs"] <= fault["tol"], f"the planted fault (no all-reduce) passes the "
+          f"fp32 limit: depth p999 {fault['p999_abs']} <= {fault['tol']}")
+    return sum_launches(ranks), summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--rank-child"]:
+        return rank_child(*sys.argv[2:4])
     smi = nvidia_smi()
     print(f"card: {smi}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1571,6 +2213,13 @@ def main():
     torch.cuda.empty_cache()
     tv_launches, tv_step_ms, tv_peak = phase_train_variants(dev)
     vs_launches, vs_request_ms, vs_peak = phase_variant_serving(sample, dev)
+    torch.cuda.empty_cache()
+    depth_tol = DEPTH_TOL_SHARE * float(sample["depth_values"][-1] - sample["depth_values"][0])
+    with tempfile.TemporaryDirectory() as workdir:
+        ddp_launches, ddp = phase_ddp_train(dev, smi, workdir)
+        train_cli = phase_train_cli(smi, workdir)
+        scan_launches, scan = phase_scan_parallel(dev, smi, workdir, depth_tol)
+        sp_launches, sp = phase_fmt_sp(sample, dev, smi, workdir, fmt["parity"]["bf16"]["tol"])
 
     def summary(name, rows, source, replaces, counter):
         """bf16 rows summed over the stages (one request's or one step's
@@ -1583,7 +2232,10 @@ def main():
                    "test_cli": cli_launches[counter],
                    "serving_fmt": fmt_launches[counter],
                    "training_variants": tv_launches[counter],
-                   "serving_georeg_refine_unet": vs_launches[counter]}
+                   "serving_georeg_refine_unet": vs_launches[counter],
+                   "training_ddp": ddp_launches[counter],
+                   "test_cli_scan_parallel": scan_launches[counter],
+                   "serving_fmt_sp": sp_launches[counter]}
         library = [r.get("library_ms") for r in main_rows]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1642,6 +2294,21 @@ def main():
           f"{tv_peak:.2f} GiB (512x640, B=4, N=5, bf16, {smi})", flush=True)
     print(f"GeoReg/refine/U-Net cascade: {vs_request_ms:.3f} ms per request, peak "
           f"{vs_peak:.2f} GiB (bf16, {smi})", flush=True)
+    for r in ddp["ranks"]:
+        print(f"DDP training rank {r['rank']} (2 gloo ranks sharing the card, B=2 of 4 each): "
+              f"{sum(r['step_ms']) / len(r['step_ms']):.3f} ms per step, peak "
+              f"{r['peak_mem_gib']:.2f} GiB (512x640, N=5, bf16, {smi})", flush=True)
+    print(f"training CLI on 2 ranks: {train_cli['steps']} steps, one checkpoint, "
+          f"{len(train_cli['trace_kernel_events'])} traces, 1-rank resume to step "
+          f"{train_cli['resumed']['step']} ({smi})", flush=True)
+    for r in scan["ranks"]:
+        print(f"scan-parallel test CLI rank {r['rank']}: {r['s_per_view_steady']} s/view "
+              f"steady, {r['cli_s']:.1f} s for its scene (1152x864, N=5, bf16, {smi})",
+              flush=True)
+    for r in sp["ranks"]:
+        print(f"FMT sequence-parallel rank {r['rank']} ({r['tokens_per_rank']} tokens): "
+              f"{sum(r['request_ms']) / len(r['request_ms']):.3f} ms per request, peak "
+              f"{r['peak_mem_gib']:.2f} GiB (bf16, {smi})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

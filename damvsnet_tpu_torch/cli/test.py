@@ -6,8 +6,12 @@ depth files, then ``--filter_method`` in {dypcd, pcd, consistency, none}.
         --testpath ... --testlist lists/dtu/test.txt \
         --loadckpt weights/bench_ckpt.npz --outdir ./outputs --filter_method dypcd
 
-One DepthRunner serves every scene; scenes run one after another in one
-process. It runs on CUDA, or on the device ``--device`` names, in bf16 on
+One DepthRunner serves every scene of a process; scenes run one after
+another. Across ranks (torchrun's environment, as in the JAX CLI's
+multi-process launch) the scenes are scan-parallel: rank i infers and
+fuses testlist[i::n] into the shared ``--outdir``, on its own card
+(``LOCAL_RANK``); ``--dist_backend`` as in the training CLI. It runs on
+CUDA, or on the device ``--device`` names, in bf16 on
 CUDA and fp32 elsewhere unless ``--dtype`` says otherwise. The consistency
 filter votes on that device (infer/fusion_device.py). The eval loaders,
 dypcd and pcd need cv2 and PIL; the consistency filter and inference read
@@ -67,8 +71,12 @@ def build_parser():
     p.add_argument("--num_consistent", type=int, default=None,
                    help="consistency filter: fixed gipuma-style vote "
                         "threshold instead of the dynamic dypcd vote")
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="the process group's backend across ranks (default: nccl "
+                        "on CUDA, gloo on the CPU)")
     p.add_argument("--device", default=None,
-                   help="torch device (default: cuda; raises without one)")
+                   help="torch device (default: cuda, this rank's card; raises "
+                        "without one)")
     return p
 
 
@@ -98,11 +106,17 @@ def main(argv=None):
     from ..infer.fusion_pcd import pcd_filter
     from ..infer.runner import DepthRunner, save_scene_depth
     from ..model import CascadeMVSNet
-    from ..utils.device import resolve_device
+    from ..parallel import local_device, maybe_initialize_distributed, shard_work_items
 
-    device = resolve_device(args.device)
+    rank, world = maybe_initialize_distributed(args.dist_backend, args.device)
+    device = local_device(args.device)
     with open(args.testlist) as f:
         testlist = [line.rstrip() for line in f if line.strip()]
+    # scan-parallel: each rank takes a disjoint slice of the scenes; the
+    # outputs land in the shared outdir
+    testlist = shard_work_items(testlist, rank, world)
+    if world > 1:
+        print(f"process {rank}/{world}: {len(testlist)} scenes")
     if args.dtype == "auto":
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     else:
@@ -143,3 +157,6 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()

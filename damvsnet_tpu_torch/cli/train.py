@@ -1,5 +1,5 @@
 """Training CLI; counterpart of damvsnet_tpu/cli/train.py (flag surface of
-the reference train.py:19-77, less the JAX package's mesh, XLA-cache and
+the reference train.py:19-77, less the JAX package's XLA-cache and
 debug-NaN flags).
 
     python -m damvsnet_tpu_torch.cli.train --dataset dtu_yao \
@@ -18,13 +18,22 @@ statistics and unclamped hypotheses; ``--fused_train`` trains the adaptive
 cost volume through the fused kernels (K1 with its backward K3 on the
 card) with the folded weight net and clamped hypotheses. The DTU and
 BlendedMVS loaders need cv2 and PIL. It runs on CUDA, or on the device
-``--device`` names. ``--profile_dir``, which the port does not have yet,
-raises, naming the ROADMAP item.
+``--device`` names. ``--profile_dir`` traces 1 warm and 5 traced steps
+with torch.profiler (one trace per rank) before the epochs.
+
+Across ranks, started by a launcher that sets torchrun's environment:
+
+    torchrun --nproc_per_node=<cards> -m damvsnet_tpu_torch.cli.train ...
+
+each rank trains on its card (``LOCAL_RANK``) its rows of the global
+``--batch_size`` batch (data parallelism over every rank, ``--mesh_data``;
+NCCL by default, ``--dist_backend gloo`` where ranks share a card or run
+on the CPU). ``--mesh_space`` above 1, the depth-slab axis, raises, naming
+the ROADMAP item.
 """
 from __future__ import annotations
 
 import argparse
-import os
 import time
 
 
@@ -76,17 +85,28 @@ def build_parser():
                    help="a mid-epoch checkpoint (with the data cursor) every "
                         "N steps; --resume continues from it mid-epoch. "
                         "0 = per-epoch only (reference parity)")
-    p.add_argument("--profile_dir", default=None)
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace of 5 steps after 1 warm "
+                        "step here, one file per rank")
+    p.add_argument("--mesh_data", type=int, default=None,
+                   help="data-parallel ranks (default and only value: all ranks)")
+    p.add_argument("--mesh_space", type=int, default=1,
+                   help="the depth-slab axis; above 1 it raises (not ported)")
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="the process group's backend (default: nccl on CUDA, gloo "
+                        "on the CPU); NCCL puts at most one rank on a card")
     p.add_argument("--device", default=None,
-                   help="torch device (default: cuda; raises without one)")
+                   help="torch device (default: cuda, this rank's card; raises "
+                        "without one)")
     return p
 
 
 def check_supported(args) -> None:
     """Raise on a flag that asks for what the port does not have yet."""
-    if args.profile_dir is not None:
-        raise NotImplementedError("--profile_dir: the port has no torch.profiler trace "
-                                  "of training (ROADMAP Queue 1 item 14)")
+    if args.mesh_space > 1:
+        raise NotImplementedError(
+            "--mesh_space > 1: the depth-slab sharding of the cost volumes over a "
+            "'space' axis is not ported (ROADMAP Queue 1 item 10.2b)")
 
 
 def main(argv=None):
@@ -98,14 +118,18 @@ def main(argv=None):
     from ..data import find_dataset_def
     from ..data.common import DataLoader
     from ..model import CascadeMVSNet
+    from ..parallel import local_device, make_mesh, maybe_initialize_distributed
     from ..train.loop import Trainer
+    from ..train.profiler import trace_path, trace_steps
     from ..train.schedule import make_optimizer
     from ..train.state import TrainState, latest_checkpoint, restore_checkpoint
-    from ..utils.device import resolve_device
     from ..utils.weights import load_bench_weights
 
+    rank, _ = maybe_initialize_distributed(args.dist_backend, args.device)
+    log = print if rank == 0 else (lambda *_: None)  # rank 0 alone writes the log
+    mesh = make_mesh(data=args.mesh_data, space=args.mesh_space)
     dataset_cls = find_dataset_def(args.dataset)
-    device = resolve_device(args.device)
+    device = local_device(args.device)
     torch.manual_seed(args.seed)
     ndepths = tuple(int(x) for x in args.ndepths.split(",") if x)
     dlossw = tuple(float(x) for x in args.dlossw.split(",") if x)
@@ -127,30 +151,41 @@ def main(argv=None):
                                args.testlist or args.trainlist, "val",
                                args.nviews, args.numdepth, args.interval_scale)
                    if args.testlist else None)
+    shard = {"rank": mesh.data_rank, "world": mesh.data}
     train_loader = DataLoader(train_dataset, args.batch_size, shuffle=True,
-                              seed=args.seed, num_workers=args.num_workers)
+                              seed=args.seed, num_workers=args.num_workers,
+                              grad_accum=args.grad_accum, **shard)
     optimizer, scheduler = make_optimizer(model.parameters(), args.lr, args.lrepochs,
                                           len(train_loader), args.wd)
     state = TrainState(model, optimizer, scheduler)
 
-    os.makedirs(args.logdir, exist_ok=True)
     first_batch = 0
     if args.resume:
         ckpt = latest_checkpoint(args.logdir)
         if ckpt:
             state, first_batch = restore_checkpoint(ckpt, state)
-            print(f"resumed from {ckpt} at epoch {state.epoch}"
+            log(f"resumed from {ckpt} at epoch {state.epoch}"
                   + (f" (mid-epoch, from batch {first_batch})" if first_batch else ""))
     elif args.loadckpt:
         if args.loadckpt.endswith(".npz"):
             load_bench_weights(model, args.loadckpt)
         else:
             restore_checkpoint(args.loadckpt, state, weights_only=True)
-        print(f"loaded weights from {args.loadckpt}")
+        log(f"loaded weights from {args.loadckpt}")
 
     trainer = Trainer(state, args.logdir, dlossw=dlossw, use_cpc=not args.no_cpc,
                       summary_freq=args.summary_freq, save_freq=args.save_freq,
-                      grad_accum=args.grad_accum, device=device)
+                      grad_accum=args.grad_accum, device=device, mesh=mesh)
+    if args.profile_dir:
+        # the JAX CLI's profile: one warm step, then 5 traced steps, on the
+        # epoch's first batch; they train (damvsnet_tpu/cli/train.py:177-186)
+        warm = next(train_loader.iter_epoch(state.epoch, skip=first_batch))
+        trainer.train_step(state, warm)
+        with trace_steps(args.profile_dir):
+            for _ in range(5):
+                trainer.train_step(state, warm)
+        log(f"profiler traces written to {args.profile_dir}, one a rank "
+            f"(this rank's: {trace_path(args.profile_dir)})")
     for epoch in range(state.epoch, args.epochs):
         t0 = time.time()
         # the loader's order is named by the epoch, so a resumed run sees
@@ -158,14 +193,18 @@ def main(argv=None):
         means = trainer.train_epoch(train_loader.iter_epoch(epoch, skip=first_batch),
                                     first_batch=first_batch)
         first_batch = 0
-        print(f"epoch {epoch} done in {time.time() - t0:.1f}s: "
+        log(f"epoch {epoch} done in {time.time() - t0:.1f}s: "
               + " ".join(f"{k}={v:.4f}" for k, v in means.items()))
         if val_dataset is not None:
             val_loader = DataLoader(val_dataset, args.batch_size,
-                                    num_workers=args.num_workers)
+                                    num_workers=args.num_workers, **shard)
             trainer.eval_epoch(val_loader.iter_epoch(0))
+    trainer.close()
     return trainer
 
 
 if __name__ == "__main__":
     main()
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -7,7 +7,9 @@ batch axis. The loader's order is a function of (seed, epoch) only, so a
 run resumed from a mid-epoch checkpoint sees the same batches as the run
 it replaces: the caller names the epoch (``iter_epoch``) rather than
 counting calls, and batches before the cursor are skipped by index,
-before any sample is loaded.
+before any sample is loaded. Across ranks each rank loads only its rows of
+every global batch (``parallel/mesh.py::batch_rows``); the order, the
+length and the cursor are the global batches'.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ import threading
 from typing import Iterator, Sequence
 
 import numpy as np
+
+from ..parallel.mesh import batch_rows
 
 
 def collate(samples: Sequence[dict]) -> dict:
@@ -37,18 +41,29 @@ def collate(samples: Sequence[dict]) -> dict:
 class DataLoader:
     """Shuffling, batching and threaded prefetch of up to ``PREFETCH``
     batches. ``drop_last`` (training: fixed shapes) drops the last partial
-    batch; the depth writer keeps it."""
+    batch; the depth writer keeps it.
+
+    rank, world, grad_accum: ``batch_size`` is the global batch, of which
+    this data rank yields its rows (``batch_rows``: its part of each of the
+    step's ``grad_accum`` microbatches); the batches must be whole."""
 
     PREFETCH = 2
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
-                 seed: int = 0, num_workers: int = 4, drop_last: bool = True):
+                 seed: int = 0, num_workers: int = 4, drop_last: bool = True,
+                 rank: int = 0, world: int = 1, grad_accum: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.num_workers = num_workers
         self.drop_last = drop_last
+        self.rows = None
+        if world > 1 or grad_accum > 1:
+            if not drop_last:
+                raise ValueError("a loader split over ranks or microbatches drops the "
+                                 "last partial batch")
+            self.rows = batch_rows(batch_size, rank, world, grad_accum)
 
     def __len__(self):
         n = len(self.dataset)
@@ -65,6 +80,8 @@ class DataLoader:
         idx = self._indices(epoch)
         batches = [idx[i * self.batch_size:(i + 1) * self.batch_size]
                    for i in range(skip, len(self))]
+        if self.rows is not None:
+            batches = [b[self.rows] for b in batches]
         if self.num_workers <= 0:
             for b in batches:
                 yield collate([self.dataset[int(i)] for i in b])

@@ -12,6 +12,13 @@ The reference's ``_bilinear_sample`` validity mask checks
 appears twice). The quirk is kept, as in the JAX package; it shifts the
 mask on the bottom edge.
 
+Across the ranks of a data group the per-view reconstruction loss, a mean
+over the whole batch that decides which two views each pixel keeps, is
+the global batch's mean (an all-reduce under autograd). Each rank returns
+its share of the global loss: its own mean over pixels over the world
+size, so that the ranks' values, of equal batches, sum to the global
+loss (``losses/supervised.py``).
+
 Camera math runs in true fp32 (``ops.warp.matmul_fp32``). Layouts: imgs
 [B, N, H, W, C]; cams {stage: [B, N, 2, 4, 4]} (extrinsics, K-padded);
 depth maps [B, h, w].
@@ -19,8 +26,10 @@ depth maps [B, h, w].
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ..ops.resize import resize_bilinear
+from ..parallel.collectives import all_reduce_sum
 from ..ops.warp import matmul_fp32
 
 
@@ -111,21 +120,24 @@ def compute_reconstr_loss(warped, ref, mask):
     return torch.mean(torch.where(ad < 1.0, 0.5 * diff * diff, ad - 0.5))
 
 
-def cross_view_loss(stage_outputs, imgs, cams, depth_gt_ms, depth_loss_weights):
+def cross_view_loss(stage_outputs, imgs, cams, depth_gt_ms, depth_loss_weights,
+                    group=None):
     """Total CPC loss over stages (module.py:624-691).
 
     stage_outputs: {"stageK": {"depth": [B,h,w], ...}};
     imgs [B, N, H, W, C]; cams {"stageK": [B, N, 2, 4, 4]};
-    depth_gt_ms {"stageK": [B, h, w]}.
+    depth_gt_ms {"stageK": [B, h, w]}; group: a data group of ranks with
+    equal batches, or None (see the module's docstring).
     """
     num_views = imgs.shape[1]
+    world = 1 if group is None else dist.get_world_size(group)
     total = 0.0
     for stage_key in sorted(k for k in stage_outputs if k.startswith("stage")):
         depth_est = stage_outputs[stage_key]["depth"]
         depth_gt = depth_gt_ms[stage_key]
         _, hh, ww = depth_est.shape
         ref_cam = cams[stage_key][:, 0]
-        per_view = []
+        reconstr, masks = [], []
         for view in range(1, num_views):
             view_cam = cams[stage_key][:, view]
             view_img = resize_bilinear(imgs[:, view].float(), (hh, ww),
@@ -133,13 +145,16 @@ def cross_view_loss(stage_outputs, imgs, cams, depth_gt_ms, depth_loss_weights):
             warped_est, mask_est = inverse_warping(view_img, ref_cam, view_cam, depth_est)
             warped_gt, mask_gt = inverse_warping(view_img, ref_cam, view_cam, depth_gt)
             mask = mask_est * mask_gt
-            reconstr = compute_reconstr_loss(warped_est, warped_gt, mask)
-            per_view.append(reconstr + 1e4 * (1.0 - mask))  # [B,h,w,1]
+            reconstr.append(compute_reconstr_loss(warped_est, warped_gt, mask))
+            masks.append(mask)
+        if group is not None:
+            reconstr = (all_reduce_sum(torch.stack(reconstr), group) / world).unbind()
+        per_view = [r + 1e4 * (1.0 - m) for r, m in zip(reconstr, masks)]  # [B,h,w,1]
         vol = torch.stack(per_view, dim=-1)  # [B,h,w,1,V-1]
         k = min(2, vol.shape[-1])
         top_vals = torch.topk(vol, k, dim=-1, largest=False).values
         top_vals = top_vals * (top_vals < 1e4).to(vol.dtype)
-        stage_loss = torch.mean(torch.sum(top_vals, dim=-1))
+        stage_loss = torch.mean(torch.sum(top_vals, dim=-1)) / world
         stage_idx = int(stage_key.replace("stage", "")) - 1
         total = total + stage_loss * depth_loss_weights[stage_idx]
     return total

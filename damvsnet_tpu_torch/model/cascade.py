@@ -135,7 +135,10 @@ class CascadeMVSNet(nn.Module):
     keeps its gradient). reg_mode: "costreg" (the 3-D U-Net) or "georeg"
     (GeoRegNet2d; ndepths must halve, then quarter: 64/32/8). refine: the
     RefineNet head. arch_mode: FeatureNet's "fpn" or "unet". share_cr
-    raises (see the module's docstring). plain: run the kernels' plain
+    raises (see the module's docstring). fmt_sp_group: a process group
+    over which the FMT's attention runs sequence-parallel where its size
+    (more than 1) divides the tokens (JAX's ``fmt_sp_axis``); every rank of
+    it runs the same request. plain: run the kernels' plain
     PyTorch versions instead of the CUDA kernels (under autograd in training) — a reference
     for checking the kernels on the card; nothing selects it on its own.
     device: where the parameters live, CUDA unless the caller names
@@ -152,7 +155,7 @@ class CascadeMVSNet(nn.Module):
                  fused_train: bool = False, use_fmt: bool = False,
                  share_cr: bool = False, grad_method: str = "detach",
                  reg_mode: str = "costreg", refine: bool = False,
-                 arch_mode: str = "fpn"):
+                 arch_mode: str = "fpn", fmt_sp_group=None):
         super().__init__()
         if len(ndepths) != 3 or len(cr_base_chs) != 3:
             raise ValueError(f"the cascade has 3 stages, got ndepths={ndepths}, "
@@ -189,7 +192,7 @@ class CascadeMVSNet(nn.Module):
         self.arch_mode = arch_mode
         self.feature = FeatureNet(base_channels=8, arch_mode=arch_mode)
         if use_fmt:
-            self.FMT_with_pathway = FMTWithPathway(base_channels=8)
+            self.FMT_with_pathway = FMTWithPathway(base_channels=8, sp_group=fmt_sp_group)
         if use_geo_fusion:
             self.GeoFeatureFusionNet = GeoFeatureFusion()
         if reg_mode == "georeg":

@@ -20,11 +20,23 @@ to it). BatchNorm (``norm_act``) follows the JAX ``_NormAct``:
     normalized result cast back to the compute dtype. The running
     statistics are updated with the BIASED batch variance, as flax does;
     torch's own ``F.batch_norm`` would use the unbiased one, a factor
-    n/(n-1) apart.
+    n/(n-1) apart. Inside ``batch_stats_group(group)`` (a process group)
+    the statistics are those of the global batch, the union of the group's
+    batches (GSPMD's reduction over the 'data' axis in the JAX package):
+    ``_SyncedBatchNorm`` gathers each rank's count, fp64 mean and M2 in one
+    all-gather and combines them by Chan's formula, which keeps the
+    two-pass variance's accuracy; its backward all-reduces the two fp64
+    per-channel sums the input's gradient needs. ``nn.SyncBatchNorm``
+    is not used: it updates the running variance with the unbiased
+    variance.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -69,19 +81,92 @@ def norm_act(y: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
     return out.relu_() if relu else out
 
 
+_STATS_GROUP = contextvars.ContextVar("batch_stats_group", default=None)
+
+
+@contextlib.contextmanager
+def batch_stats_group(group):
+    """Training-mode BatchNorm inside the block takes its batch statistics
+    over every rank of ``group`` (a data group; None: this rank's batch
+    alone). The group is read when a BN runs forward; its backward keeps
+    it."""
+    token = _STATS_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _STATS_GROUP.reset(token)
+
+
 def _batch_stats_norm(y, bn, relu):
     """Training-mode BatchNorm: normalize with the fp32 batch statistics,
     then update the running statistics (momentum 0.1, biased variance)."""
     y32 = y.float()
-    out = F.batch_norm(y32, None, None, bn.weight.float(), bn.bias.float(),
-                       training=True, eps=BN_EPS).to(y.dtype)
+    group = _STATS_GROUP.get()
+    if group is None:
+        out = F.batch_norm(y32, None, None, bn.weight.float(), bn.bias.float(),
+                           training=True, eps=BN_EPS).to(y.dtype)
+        with torch.no_grad():
+            var, mean = torch.var_mean(y32, dim=[0] + list(range(2, y.dim())), correction=0)
+    else:
+        out, mean, var = _SyncedBatchNorm.apply(y32, bn.weight.float(), bn.bias.float(),
+                                                group)
+        out = out.to(y.dtype)
     with torch.no_grad():
-        dims = [0] + list(range(2, y.dim()))
-        var, mean = torch.var_mean(y32, dim=dims, correction=0)
         bn.running_mean.lerp_(mean, BN_MOMENTUM)
         bn.running_var.lerp_(var, BN_MOMENTUM)
         bn.num_batches_tracked.add_(1)
     return torch.relu(out) if relu else out
+
+
+class _SyncedBatchNorm(torch.autograd.Function):
+    """BatchNorm of fp32 ``x`` [B, C, ...] over the union of the group's
+    batches. Returns (out, mean, biased var); the statistics carry no
+    gradient of their own (they reach the input through ``out``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, group):
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        c = x.shape[1]
+        n_l = x.numel() // c
+        # this rank's count, mean and M2 (two-pass), summed in fp64
+        mean_l = x.sum(dims, dtype=torch.float64) / n_l
+        m2_l = (x - mean_l.float().view(shape)).square().sum(dims, dtype=torch.float64)
+        packed = torch.cat([torch.full((1,), float(n_l), dtype=torch.float64, device=x.device),
+                            mean_l, m2_l])
+        parts = [torch.empty_like(packed) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, packed, group=group)
+        stats = torch.stack(parts)  # [ranks, 1 + 2C]: count, mean, M2
+        n, means, m2 = stats[:, :1], stats[:, 1:1 + c], stats[:, 1 + c:]
+        total = n.sum()
+        mean = (n * means).sum(0) / total
+        var = (m2.sum(0) + (n * (means - mean) ** 2).sum(0)) / total
+        mean, invstd = mean.float(), torch.rsqrt(var + BN_EPS).float()
+        out = (x - mean.view(shape)) * (invstd * weight).view(shape) + bias.view(shape)
+        ctx.save_for_backward(x, weight, mean, invstd, total)
+        ctx.group = group
+        var = var.float()
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, grad_out, _grad_mean, _grad_var):
+        x, weight, mean, invstd, total = ctx.saved_tensors
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        xmu = x - mean.view(shape)
+        # this rank's sums, in fp64; DDP averages the parameters' gradients
+        sum_dy = grad_out.sum(dims, dtype=torch.float64)
+        sum_dy_xmu = (grad_out * xmu).sum(dims, dtype=torch.float64)
+        # the input's gradient needs the sums over the global batch
+        sums = torch.cat([sum_dy, sum_dy_xmu])
+        dist.all_reduce(sums, group=ctx.group)
+        mean_dy, mean_dy_xmu = (sums / total).float().chunk(2)
+        # dx = invstd w (dy - E[dy] - (x - mean) invstd^2 E[dy (x - mean)])
+        k = invstd * invstd * mean_dy_xmu
+        grad_x = (grad_out - mean_dy.view(shape) - xmu * k.view(shape)) \
+            * (invstd * weight).view(shape)
+        return grad_x, sum_dy_xmu.float() * invstd, sum_dy.float(), None
 
 
 def batch_norm(nd: int, channels: int):

@@ -5,7 +5,10 @@ damvsnet_tpu/nn/fmt.py; TransMVSNet lineage).
     per-head d x d summary KV = sum_s K_s V_s^T and the normalizer's
     sum_s K_s run over every token (62,208 at the serving stage 1), so
     they, and the whole attention, are computed in fp32 and the result
-    rounded once to the queries' dtype.
+    rounded once to the queries' dtype. With ``sp_group``, a process group
+    whose size divides the tokens, an attention with as many keys as
+    queries runs sequence-parallel over its ranks
+    (``parallel/fmt_sp.py``; JAX's ``sp_axis``).
   * ``AttentionLayer`` / ``EncoderLayer``: post-norm residual blocks with a
     2x FFN, dropout 0. LayerNorm's epsilon is flax's 1e-6 (the reference's
     torch LayerNorm has 1e-5).
@@ -39,6 +42,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.resize import resize_bilinear
+from ..parallel.fmt_sp import sequence_parallel_applies, sequence_parallel_linear_attention
 from .blocks import conv
 from .posenc import sine_position_encoding
 
@@ -73,9 +77,10 @@ def layer_norm(x: torch.Tensor, m: nn.LayerNorm) -> torch.Tensor:
 
 
 class AttentionLayer(nn.Module):
-    def __init__(self, d_model: int, n_heads: int):
+    def __init__(self, d_model: int, n_heads: int, sp_group=None):
         super().__init__()
         self.n_heads = n_heads
+        self.sp_group = sp_group
         self.query_projection = nn.Linear(d_model, d_model)
         self.key_projection = nn.Linear(d_model, d_model)
         self.value_projection = nn.Linear(d_model, d_model)
@@ -88,14 +93,17 @@ class AttentionLayer(nn.Module):
         k = dense(keys, self.key_projection, dtype).view(keys.shape[0], keys.shape[1], h, -1)
         v = dense(values, self.value_projection, dtype).view(values.shape[0],
                                                              values.shape[1], h, -1)
-        out = linear_attention(q, k, v).reshape(n, l, -1)
-        return dense(out, self.out_projection, dtype)
+        if sequence_parallel_applies(self.sp_group, l, k.shape[1]):
+            out = sequence_parallel_linear_attention(q, k, v, self.sp_group)
+        else:
+            out = linear_attention(q, k, v)
+        return dense(out.reshape(n, l, -1), self.out_projection, dtype)
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, d_model: int, n_heads: int):
+    def __init__(self, d_model: int, n_heads: int, sp_group=None):
         super().__init__()
-        self.attention = AttentionLayer(d_model, n_heads)
+        self.attention = AttentionLayer(d_model, n_heads, sp_group)
         self.linear1 = nn.Linear(d_model, 2 * d_model)
         self.linear2 = nn.Linear(2 * d_model, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
@@ -109,13 +117,14 @@ class EncoderLayer(nn.Module):
 
 class FMT(nn.Module):
     def __init__(self, d_model: int = 32, n_heads: int = 8,
-                 layer_names=("self", "cross") * 4):
+                 layer_names=("self", "cross") * 4, sp_group=None):
         super().__init__()
         if any(name not in ("self", "cross") for name in layer_names):
             raise KeyError(f"FMT layer names are 'self' or 'cross', got {layer_names}")
         self.d_model = d_model
         self.layer_names = tuple(layer_names)
-        self.layers = nn.ModuleList(EncoderLayer(d_model, n_heads) for _ in layer_names)
+        self.layers = nn.ModuleList(EncoderLayer(d_model, n_heads, sp_group)
+                                    for _ in layer_names)
         for p in self.parameters():  # the reference's _reset_parameters
             if p.dim() > 1:
                 nn.init.xavier_uniform_(p)
@@ -144,10 +153,10 @@ class FMT(nn.Module):
 
 
 class FMTWithPathway(nn.Module):
-    def __init__(self, base_channels: int = 8):
+    def __init__(self, base_channels: int = 8, sp_group=None):
         super().__init__()
         b = base_channels
-        self.FMT = FMT(d_model=4 * b)
+        self.FMT = FMT(d_model=4 * b, sp_group=sp_group)
         self.dim_reduction_1 = nn.Conv2d(4 * b, 2 * b, 1, bias=False)
         self.dim_reduction_2 = nn.Conv2d(2 * b, b, 1, bias=False)
         self.smooth_1 = nn.Conv2d(2 * b, 2 * b, 3, padding=1, bias=False)

@@ -16,6 +16,12 @@ Unlike the JAX package (ADVICE.md, round 5, ``train/state.py:131``):
     save first joins the previous one), so rotation never deletes a file
     another save is still writing.
 
+Across ranks, rank 0 alone writes (the background step saves too), a
+synchronous save ends at a barrier of every rank, so that no rank reads
+before the file is in place, and every rank restores. The model saved is
+the bare module, never its DDP wrapper, so a checkpoint written by N ranks
+resumes on one and the reverse.
+
 Trained weights from the JAX package come in through ``utils/weights.py``
 (``.npz``); orbax checkpoints are not read.
 """
@@ -27,6 +33,7 @@ import threading
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
 _EPOCH = re.compile(r"ckpt_\d{6}\.pt")
 _STEP = re.compile(r"ckpt_step_\d{9}\.pt")
@@ -62,7 +69,7 @@ def checkpoint_path(logdir: str, state: TrainState, mid_epoch: bool) -> str:
 
 class Checkpointer:
     """Writes checkpoints into one log directory, optionally on a
-    background thread, one save at a time.
+    background thread, one save at a time; across ranks, rank 0 writes.
 
     max_keep: keep at most this many checkpoints of each kind (the oldest
     go; utilsme/io_utils.py:157-191 semantics)."""
@@ -70,6 +77,7 @@ class Checkpointer:
     def __init__(self, logdir: str, max_keep: int | None = None):
         self.logdir = os.path.abspath(logdir)
         self.max_keep = max_keep
+        self.writes = not dist.is_initialized() or dist.get_rank() == 0
         self._pending: threading.Thread | None = None
         self._error: BaseException | None = None
 
@@ -78,11 +86,16 @@ class Checkpointer:
         """Save ``state``; cursor=k marks a mid-epoch save after k batches
         of epoch ``state.epoch``. With background=True the payload is
         copied to the host here and written on a thread; ``wait()`` joins
-        it. Returns the checkpoint's path."""
+        it. Returns the checkpoint's path. Across ranks, a synchronous save
+        returns once every rank has reached it and the file is written."""
         self.wait()
-        os.makedirs(self.logdir, exist_ok=True)
         mid_epoch = cursor is not None
         path = checkpoint_path(self.logdir, state, mid_epoch)
+        if not self.writes:
+            if not background:
+                dist.barrier()
+            return path
+        os.makedirs(self.logdir, exist_ok=True)
         payload = {
             "model": _to_cpu(state.model.state_dict()),
             "optimizer": _to_cpu(state.optimizer.state_dict()),
@@ -99,6 +112,8 @@ class Checkpointer:
             self._pending.start()
         else:
             self._write(path, payload, mid_epoch)
+            if dist.is_initialized():
+                dist.barrier()
         return path
 
     def wait(self) -> None:

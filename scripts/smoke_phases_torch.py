@@ -8,7 +8,11 @@ in) runs in a process of its own, in the order given, so listing a parent
 tree around this one (parent / this / this / parent) compares two commits
 on the same card. The kernels are built in each tree first. Phases: 5 (the
 adaptive serving cascade), 7 (the fused training step), 14 (FMT serving),
-15 (FMT training, undetached), 16 (GeoReg / refine / U-Net serving); each
+15 (FMT training, undetached), 16 (GeoReg / refine / U-Net serving), and
+the ranks' phases, each two processes of chip_smoke.py on the card: 17
+(data-parallel fused training), 18 (the training CLI on 2 ranks), 19 (the
+scan-parallel test CLI), 20 (FMT serving with sequence parallelism; it
+runs phase 14 first when the list has not, for its bf16 limit). Each
 prints its chip_smoke.py lines, prefixed with the tree, and fails as the
 smoke does.
 """
@@ -22,7 +26,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CHILD = """
-import sys, torch
+import sys, tempfile, torch
 import chip_smoke as c
 from damvsnet_tpu_torch.data.synthetic import make_synthetic_sample
 from damvsnet_tpu_torch.model import CascadeMVSNet
@@ -35,6 +39,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 sample = make_synthetic_sample(height=c.HEIGHT, width=c.WIDTH, nviews=c.NVIEWS,
                                ndepths=c.D0, with_gt=True, seed=c.SEED)
+smi, fmt = c.nvidia_smi(), None
+workdir = tempfile.TemporaryDirectory()
 for phase in sys.argv[1:]:
     if phase == "5":
         model = CascadeMVSNet(ndepths=c.NDEPTHS, compute_dtype=torch.bfloat16, device=dev)
@@ -44,18 +50,31 @@ for phase in sys.argv[1:]:
     elif phase == "7":
         c.phase_train(dev)
     elif phase == "14":
-        c.phase_fmt_serving(sample, dev)
+        fmt = c.phase_fmt_serving(sample, dev)[2]
     elif phase == "15":
         c.phase_train_variants(dev)
     elif phase == "16":
         c.phase_variant_serving(sample, dev)
+    elif phase == "17":
+        c.phase_ddp_train(dev, smi, workdir.name)
+    elif phase == "18":
+        c.phase_train_cli(smi, workdir.name)
+    elif phase == "19":
+        rng = float(sample["depth_values"][-1] - sample["depth_values"][0])
+        c.phase_scan_parallel(dev, smi, workdir.name, c.DEPTH_TOL_SHARE * rng)
+    elif phase == "20":
+        if fmt is None:
+            fmt = c.phase_fmt_serving(sample, dev)[2]
+        c.phase_fmt_sp(sample, dev, smi, workdir.name, fmt["parity"]["bf16"]["tol"])
     torch.cuda.empty_cache()
+workdir.cleanup()
 """
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("phases", nargs="+", choices=["5", "7", "14", "15", "16"])
+    ap.add_argument("phases", nargs="+",
+                    choices=["5", "7", "14", "15", "16", "17", "18", "19", "20"])
     ap.add_argument("--trees", nargs="+", default=[REPO])
     args = ap.parse_args()
     for tree in args.trees:

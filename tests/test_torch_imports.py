@@ -69,8 +69,11 @@ def test_importing_every_module_loads_no_jax():
 def test_every_module_is_covered():
     """The scans above walk the package, so a new module is covered; the
     training slices' modules, the sampler kernel's, the loaders and host IO,
-    the library losses and the test CLI's slice (eval loaders, codec, PLY,
-    depth writer, fusion, native library, evaluation, CLIs) are among them."""
+    the library losses, the test CLI's slice (eval loaders, codec, PLY,
+    depth writer, fusion, native library, evaluation, CLIs) and the
+    distributed and tooling slice (process groups, collectives, FMT's
+    sequence parallelism, the event writer, the profiler, the
+    visualizations) are among them."""
     mods = {m for _, m in _modules()}
     assert {"damvsnet_tpu_torch.losses.crossview", "damvsnet_tpu_torch.losses.supervised",
             "damvsnet_tpu_torch.train.loop", "damvsnet_tpu_torch.train.state",
@@ -88,7 +91,10 @@ def test_every_module_is_covered():
             "damvsnet_tpu_torch.infer.fusion_device", "damvsnet_tpu_torch.infer.gipuma_bridge",
             "damvsnet_tpu_torch.native_ext", "damvsnet_tpu_torch.eval.dtu_eval",
             "damvsnet_tpu_torch.cli.test", "damvsnet_tpu_torch.cli.eval_dtu",
-            "damvsnet_tpu_torch.cli.colmap2mvsnet"} <= mods
+            "damvsnet_tpu_torch.cli.colmap2mvsnet", "damvsnet_tpu_torch.parallel",
+            "damvsnet_tpu_torch.parallel.mesh", "damvsnet_tpu_torch.parallel.collectives",
+            "damvsnet_tpu_torch.parallel.fmt_sp", "damvsnet_tpu_torch.train.logging",
+            "damvsnet_tpu_torch.train.profiler", "damvsnet_tpu_torch.utils.visualize"} <= mods
 
 
 def test_package_imports_without_cv2_and_pil():
