@@ -135,6 +135,31 @@ without printing its result line:
 The two ranks share the card's SMs and gloo copies every collective
 through the host: their times record the paths, not a scaling.
 
+ 21. slab serving: phase 5's request (and one variance request) with
+     every stage's depth hypotheses cut over 2 ranks (``slab_group``,
+     parallel/slab.py): 1 warm-up and 3 timed requests with the counters,
+     K1 (or K4's variance entry) once a stage on D/2 hypotheses and K2 once
+     a stage on the gathered D (the depth of every call recorded), each
+     CostRegNet level's local D by the rule, the stage handoffs bitwise
+     equal across the ranks; the depth against the one-process forward in
+     bf16 at phase 5's limit and in fp32 (TF32 off) at SLAB_FP32_TOL, and
+     a control that must fail that limit: the halos zeroed;
+ 22. slab training: (a) phase 7's fused step with the hypotheses cut over
+     2 ranks (K1 and K3 on D/2, 3 times a step; one more step profiled for
+     its collectives and halo exchanges), the parameters equal across the
+     ranks, then one fp32 step against the one-process step (loss at
+     STEP_LOSS_RTOL, gradient relative L2 at STEP_GRAD_L2, running
+     statistics at DDP_STATS_RTOL) and a control that must fail the
+     gradient limit: the slab shares' space sum left out; (b) the
+     non-fused step (the JAX CLI's default) over 2 ranks, 1 warm and 1
+     timed step, its peak per rank beside phase 10's in one process, one
+     more step profiled (device time, top kernels, collectives); (c)
+     the fused step on the 2x2 mesh (4 ranks, 2 rows a data rank, DDP over
+     each column), in fp32 against one process at (a)'s limits;
+ 23. the training CLI with ``--mesh_data 2 --mesh_space 2`` (4 ranks) at
+     phase 18's 128x160: its steps, one checkpoint, then a 1-rank
+     ``--resume`` from it.
+
 ``share_cr`` builds in neither package (one regularizer cannot take the
 stages' three widths), so no phase runs it.
 
@@ -254,6 +279,10 @@ DDP_STATS_RTOL = 1e-5
 # order of the sums alone; a planted fault (the attention's all-reduce left
 # out) must exceed the limit in every run (PERF.md section 6, PR 9).
 FMT_SP_FP32_TOL = 1e-3
+# phase 21: the fp32 depth of the slab request against the one-process
+# forward, p999 of |difference|: phase 20's limit (the slabs reorder the
+# sums; a planted fault, the halos zeroed, must exceed it in every run)
+SLAB_FP32_TOL = FMT_SP_FP32_TOL
 # phase 18: the training CLI's synthetic samples, 2 global batches
 CLI_TRAIN_H, CLI_TRAIN_W, CLI_TRAIN_SAMPLES = 128, 160, 8
 # phase 19: the scan-parallel test CLI's scenes (phase 13's, seeds 3 and 4)
@@ -1632,7 +1661,8 @@ def collective_profile(fn):
         fn()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    keys = ("allreduce", "allgather", "all_reduce", "all_gather", "broadcast", "barrier")
+    keys = ("allreduce", "allgather", "all_reduce", "all_gather", "broadcast", "barrier",
+            "send", "recv")
     rows = {e.key: {"count": e.count, "cpu_ms": e.cpu_time_total / 1e3}
             for e in prof.key_averages() if any(k in e.key.lower() for k in keys)}
     return {"profiled_wall_ms": wall, "ops": rows}
@@ -1742,30 +1772,45 @@ def child_nccl_step(workdir):
             "launches": launches}
 
 
-def child_train_cli(workdir):
-    """Phase 18, a rank (or, without a process group, the 1-rank resume):
-    the training CLI on the synthetic scenes at 128x160, 8 samples."""
+def run_train_cli(logdir, extra):
+    """The training CLI on the synthetic scenes at 128x160, 8 samples, with
+    the flags ``extra``; returns its step, epoch and log."""
     import functools
     from damvsnet_tpu_torch import data as port_data
     from damvsnet_tpu_torch.cli import train as cli_train
     from damvsnet_tpu_torch.data import SyntheticDataset
     port_data._REGISTRY["synthetic"] = functools.partial(
         SyntheticDataset, height=CLI_TRAIN_H, width=CLI_TRAIN_W, length=CLI_TRAIN_SAMPLES)
-    resume = "WORLD_SIZE" not in os.environ
     argv = ["--dataset", "synthetic", "--fused_train", "--batch_size", str(TRAIN_B),
             "--nviews", str(NVIEWS), "--numdepth", str(D0),
             "--ndepths", ",".join(map(str, NDEPTHS)), "--num_workers", "0", "--summary_freq", "1",
-            "--logdir", os.path.join(workdir, "train_run")]
-    if resume:
-        argv += ["--epochs", "2", "--resume"]
-    else:
-        argv += ["--epochs", "1", "--dist_backend", "gloo", "--profile_dir",
-                 os.path.join(workdir, "train_prof")]
+            "--logdir", logdir] + extra
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
         trainer = cli_train.main(argv)
     print(log.getvalue(), flush=True)
     return {"step": trainer.state.step, "epoch": trainer.state.epoch, "log": log.getvalue()}
+
+
+def child_train_cli(workdir):
+    """Phase 18, a rank (or, without a process group, the 1-rank resume)."""
+    if "WORLD_SIZE" not in os.environ:
+        extra = ["--epochs", "2", "--resume"]
+    else:
+        extra = ["--epochs", "1", "--dist_backend", "gloo", "--profile_dir",
+                 os.path.join(workdir, "train_prof")]
+    return run_train_cli(os.path.join(workdir, "train_run"), extra)
+
+
+def child_slab_cli(workdir):
+    """Phase 23, a rank of the 2x2 mesh (or, without a process group, the
+    1-rank resume)."""
+    if "WORLD_SIZE" not in os.environ:
+        extra = ["--epochs", "2", "--resume"]
+    else:
+        extra = ["--epochs", "1", "--dist_backend", "gloo", "--mesh_data", "2",
+                 "--mesh_space", "2"]
+    return run_train_cli(os.path.join(workdir, "slab_run"), extra)
 
 
 def record_scenes():
@@ -1874,11 +1919,514 @@ def child_fmt_sp(workdir):
             "peak_mem_gib": peak_gib, "collectives": collectives}
 
 
+# ---- phases 21-23: the depth-slab axis, ranks of this script on the one card ----
+#
+# Each rank of a space group holds one slab of every stage's depth
+# hypotheses (parallel/slab.py); the ranks share the card's SMs and gloo
+# copies every halo and gather through the host, so no time here is a
+# scaling figure: a record of the path.
+
+
+def slab_model(dev, dtype, mesh, **config):
+    """A model of ``config`` on the trained weights, its hypotheses cut
+    over the mesh's space group."""
+    import torch
+    from damvsnet_tpu_torch.model import CascadeMVSNet
+    from damvsnet_tpu_torch.utils.weights import load_bench_weights
+    torch.manual_seed(SEED)
+    model = CascadeMVSNet(ndepths=NDEPTHS, compute_dtype=dtype, device=dev,
+                          slab_group=mesh.space_group,
+                          slab_stats_group=mesh.slab_stats_group, **config)
+    load_bench_weights(model, SERVING_WEIGHTS)  # variance: warns, the weight nets go
+    return model
+
+
+@contextlib.contextmanager
+def kernel_depths():
+    """{wrapper: [D of each call]} while the block runs: the cascade's K1,
+    K4-variance and K2 wrappers wrapped to record the depth of the volume
+    each call produces (the wrappers count their launches as ever)."""
+    from damvsnet_tpu_torch.model import cascade
+    names = ("fused_adaptive_cost_volume", "plane_sweep_variance", "prob_volume_stats_fused")
+    saved = {n: getattr(cascade, n) for n in names}
+    seen = {}
+
+    def spy(name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            volume = out["prob_volume"] if isinstance(out, dict) else out
+            seen.setdefault(name, []).append(int(volume.shape[1]))
+            return out
+        return call
+
+    for n, fn in saved.items():
+        setattr(cascade, n, spy(n, fn))
+    try:
+        yield seen
+    finally:
+        for n, fn in saved.items():
+            setattr(cascade, n, fn)
+
+
+@contextlib.contextmanager
+def zeroed_halos():
+    """The planted fault: every halo exchange returns zeros where the
+    neighbours' planes belong."""
+    import torch
+    from damvsnet_tpu_torch.parallel import slab
+
+    def zero(x, dim, before, after, group):
+        shape = list(x.shape)
+        pads = []
+        for k in (before, after):
+            shape[dim] = k
+            pads.append(x.new_zeros(shape))
+        return torch.cat([pads[0], x, pads[1]], dim)
+
+    sound, slab.exchange_halo = slab.exchange_halo, zero
+    try:
+        yield
+    finally:
+        slab.exchange_halo = sound
+
+
+@contextlib.contextmanager
+def level_depths_held(model):
+    """Fills the list it yields, when the block ends, with each stage's
+    CostRegNet level depths as this rank held them: the D of the output of
+    the block that writes each level (conv0, conv1, conv3, conv5), seen
+    through ``slab.run_block``."""
+    from damvsnet_tpu_torch.parallel import slab
+    seen, held, sound = {}, [], slab.run_block
+
+    def run_block(block, x, *args):
+        y = sound(block, x, *args)
+        seen[id(block)] = int(y.shape[2])
+        return y
+
+    slab.run_block = run_block
+    try:
+        yield held
+    finally:
+        slab.run_block = sound
+        held += [[seen.get(id(getattr(r, n))) for n in ("conv0", "conv1", "conv3", "conv5")]
+                 for r in model.cost_regularization]
+
+
+def digest(tensors):
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def stage_handoffs(model, batch, dev):
+    """A digest per stage of what the next stage reads: its depth, sigma and
+    hypotheses."""
+    import torch
+    with torch.inference_mode():
+        out = model(torch.as_tensor(batch["imgs"], device=dev),
+                    {k: torch.as_tensor(v, device=dev) for k, v in batch["proj_matrices"].items()},
+                    torch.as_tensor(batch["depth_values"], device=dev))
+    return {s: digest([out[s]["depth"], out[s]["variance"], out[s]["depth_values"]])
+            for s in ("stage1", "stage2", "stage3")}
+
+
+def child_slab_serve(workdir):
+    """Phase 21, a rank: phase 5's request with the hypotheses cut over the
+    ranks: 1 warm-up and REQUESTS timed requests with the counters and the
+    depth of each kernel call, each CostRegNet level's local D, the stage
+    handoffs' digests, one request profiled for its collectives; the depth
+    in fp32 (TF32 off), and again with the halos zeroed (the planted
+    fault); then one variance request with the counters."""
+    import numpy as np
+    import torch
+    from damvsnet_tpu_torch.data.synthetic import make_synthetic_sample
+    from damvsnet_tpu_torch.infer import DepthRunner
+    from damvsnet_tpu_torch.parallel import make_mesh
+    rank, world, dev = child_device()
+    mesh = make_mesh(data=1, space=world)
+    sample = make_synthetic_sample(height=HEIGHT, width=WIDTH, nviews=NVIEWS, ndepths=D0,
+                                   with_gt=True, seed=SEED)
+    batch = serving_batch(sample)
+    model = slab_model(dev, torch.bfloat16, mesh)
+    runner = DepthRunner(model, device=dev)
+    with kernel_depths() as seen, level_depths_held(model) as local:
+        warm_ms, times, out, launches, peak_gib = timed_requests(runner, batch)
+    handoffs = stage_handoffs(model, batch, dev)
+    collectives = collective_profile(lambda: runner(batch))
+    depth = {"bf16": out["depth"]}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model.compute_dtype = torch.float32
+    depth["fp32"] = runner(batch)["depth"]
+    with zeroed_halos():
+        depth["fp32_fault"] = runner(batch)["depth"]
+    del runner, model
+    torch.cuda.empty_cache()
+    vmodel = slab_model(dev, torch.bfloat16, mesh, agg_mode="variance")
+    vrunner = DepthRunner(vmodel, device=dev)
+    reset_counters()
+    with kernel_depths() as vseen:
+        t0 = time.perf_counter()
+        depth["variance_bf16"] = vrunner(batch)["depth"]
+        var_ms = (time.perf_counter() - t0) * 1e3
+    var_launches = read_counters()
+    if rank == 0:
+        np.savez(os.path.join(workdir, "slab_depth.npz"), **depth)
+    return {"rank": rank, "warmup_ms": warm_ms, "request_ms": times, "launches": launches,
+            "peak_mem_gib": peak_gib, "collectives": collectives, "kernel_depths": seen,
+            "local_depths": local, "handoffs": handoffs, "variance_request_ms": var_ms,
+            "variance_launches": var_launches, "variance_kernel_depths": vseen}
+
+
+def local_depth_rule(world):
+    """Each stage's CostRegNet level depths as one rank of ``world`` holds
+    them: D/S where the level divides, the whole D where it runs whole."""
+    from damvsnet_tpu_torch.parallel.slab import level_depths, slabbed
+    return [[d // world if slabbed(d, world) else d for d in level_depths(n)] for n in NDEPTHS]
+
+
+def check_slab_ranks(path, ranks, world, depths_key="kernel_depths", counters=(
+        "fused_adaptive_cost_volume", "prob_volume_stats_fused")):
+    """Every rank's kernel calls on D/S hypotheses (K2 on the whole D),
+    each CostRegNet level's local D by the rule, and (where recorded) the
+    stage handoffs bitwise equal across the ranks."""
+    for r in ranks:
+        for name in counters:
+            calls = r[depths_key].get(name, [])
+            want = [d if name == "prob_volume_stats_fused" else d // world for d in NDEPTHS]
+            check(calls and all(calls[i:i + 3] == want for i in range(0, len(calls), 3)),
+                  f"{path} rank {r['rank']}: {name} ran on depths {calls}, expected {want} "
+                  "a request")
+        if "local_depths" in r:
+            check(r["local_depths"] == local_depth_rule(world),
+                  f"{path} rank {r['rank']}: CostRegNet levels held {r['local_depths']}, "
+                  f"the rule gives {local_depth_rule(world)}")
+    if "handoffs" in ranks[0]:
+        check(all(r["handoffs"] == ranks[0]["handoffs"] for r in ranks),
+              f"{path}: the stage handoffs differ across the ranks")
+
+
+def phase_slab_serving(sample, dev, smi, workdir, depth_tol):
+    """Phase 21: phase 5's request with the depth hypotheses cut over 2
+    ranks, against the one-process forward (bf16 at phase 5's limit, fp32
+    at SLAB_FP32_TOL, which the planted fault must exceed); one variance
+    request likewise in bf16. Returns ({path: {counter: launches}} summed
+    over the ranks, the summary)."""
+    import numpy as np
+    import torch
+    from damvsnet_tpu_torch.infer import DepthRunner
+    from damvsnet_tpu_torch.model import CascadeMVSNet
+    from damvsnet_tpu_torch.utils.weights import load_bench_weights
+    batch = serving_batch(sample)
+    want = {}
+    for agg_mode in ("adaptive", "variance"):
+        model = CascadeMVSNet(ndepths=NDEPTHS, compute_dtype=torch.bfloat16, device=dev,
+                              agg_mode=agg_mode)
+        load_bench_weights(model, SERVING_WEIGHTS)
+        runner = DepthRunner(model, device=dev)
+        want[f"{agg_mode}_bf16"] = runner(batch)["depth"]
+        if agg_mode == "adaptive":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            model.compute_dtype = torch.float32
+            want["adaptive_fp32"] = runner(batch)["depth"]
+        del runner, model
+        torch.cuda.empty_cache()
+    ranks = spawn_ranks("slab_serve", workdir)
+    for r in ranks:
+        check_launches(f"slab serving rank {r['rank']}", r["launches"],
+                       {"fused_adaptive_cost_volume": 3, "prob_volume_stats_fused": 3}, REQUESTS)
+        check_launches(f"slab variance serving rank {r['rank']}", r["variance_launches"],
+                       {"plane_sweep_variance": 3, "prob_volume_stats_fused": 3}, 1)
+    check_slab_ranks("slab serving", ranks, RANKS)
+    check_slab_ranks("slab variance serving", ranks, RANKS, "variance_kernel_depths",
+                     ("plane_sweep_variance", "prob_volume_stats_fused"))
+    got = np.load(os.path.join(workdir, "slab_depth.npz"))
+    parity = {}
+    for tag, ref, tol in (("bf16", "adaptive_bf16", depth_tol),
+                          ("fp32", "adaptive_fp32", SLAB_FP32_TOL),
+                          ("fp32_fault", "adaptive_fp32", SLAB_FP32_TOL),
+                          ("variance_bf16", "variance_bf16", depth_tol)):
+        check(got[tag].shape == want[ref].shape, f"slab {tag} depth: shape {got[tag].shape}")
+        check(tag == "fp32_fault" or bool(np.isfinite(got[tag]).all()),
+              f"slab {tag} depth: non-finite values")
+        diff = np.abs(got[tag] - want[ref])
+        parity[tag] = {"p999_abs": float(np.quantile(diff, 0.999)),
+                       "max_abs": float(diff.max()), "tol": tol}
+    summary = {"ranks": [{k: r[k] for k in ("rank", "warmup_ms", "request_ms", "peak_mem_gib",
+                                            "collectives", "launches", "kernel_depths",
+                                            "local_depths", "variance_request_ms",
+                                            "variance_launches")} for r in ranks],
+               "handoffs_equal": True, "parity_vs_one_process": parity, "card": smi}
+    print(f"slab serving ({RANKS} gloo ranks)", json.dumps(summary), flush=True)
+    for tag in ("bf16", "fp32", "variance_bf16"):
+        p = parity[tag]
+        check(p["p999_abs"] <= p["tol"], f"slab serving {tag}: depth p999 {p['p999_abs']} > "
+              f"{p['tol']}")
+    fault = parity["fp32_fault"]
+    check(not fault["p999_abs"] <= fault["tol"], f"the planted fault (halos zeroed) passes the "
+          f"fp32 limit: depth p999 {fault['p999_abs']} <= {fault['tol']}")
+    return ({"serving_slab": sum_launches(ranks),
+             "serving_variance_slab": sum_launches(
+                 [{"launches": r["variance_launches"]} for r in ranks])}, summary)
+
+
+def child_slab_train(workdir, data=1, backend="gloo"):
+    """Phase 22 (a) (``data`` 1: the space group is every rank) and (c)
+    (``data`` 2: the 2x2 mesh, each data rank its rows), a rank: 1 warm
+    and TRAIN_STEPS timed bf16 fused steps with the counters and the depth
+    of each K1 call, the halo exchanges of a step counted, one more step
+    profiled for its collectives, a digest of the parameters after the
+    steps; then one fp32 step from the trained weights (rank 0 saves it)
+    and, at ``data`` 1, the same step with the slab shares' space sum left
+    out (the planted fault). backend None: NCCL, a card a rank."""
+    import torch
+    from damvsnet_tpu_torch.parallel import batch_rows, make_mesh, slab
+    from damvsnet_tpu_torch.train import loop
+    from damvsnet_tpu_torch.train.loop import make_train_step
+    from damvsnet_tpu_torch.train.schedule import make_optimizer
+    from damvsnet_tpu_torch.train.state import TrainState
+    rank, world, dev = child_device(backend)
+    mesh = make_mesh(data=data, space=world // data)
+    rows = batch_rows(TRAIN_B, mesh.data_rank, mesh.data)
+    model = slab_model(dev, torch.bfloat16, mesh, fused_train=True)
+    optimizer, scheduler = make_optimizer(model.parameters(), 1e-3, "10,12,14:2",
+                                          iters_per_epoch=1000)
+    state = TrainState(model, optimizer, scheduler)
+    step = make_train_step(device=dev, mesh=mesh)
+    batches = [train_rows(i, rows) for i in range(TRAIN_STEPS + 1)]
+    t0 = time.perf_counter()
+    step(state, batches[0])
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    reset_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    with kernel_depths() as seen:
+        for batch in batches[1:]:
+            t0 = time.perf_counter()
+            metrics = step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.pop("_images")
+            losses.append({k: float(v) for k, v in metrics.items()})
+    launches = read_counters()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    params = digest(model.parameters())
+    halos, sound = [], slab.exchange_halo
+    slab.exchange_halo = lambda *a, **k: halos.append(1) or sound(*a, **k)
+    try:
+        collectives = collective_profile(lambda: step(state, batches[1]))
+    finally:
+        slab.exchange_halo = sound
+    del state, step, optimizer, scheduler, model
+    torch.cuda.empty_cache()
+    result = fp32_step_result(slab_model(dev, torch.float32, mesh, fused_train=True),
+                              batches[1], dev, mesh)
+    saved = {"fp32": result}
+    if data == 1:
+        torch.cuda.empty_cache()
+        sound_sum = loop.sum_slab_shares
+        loop.sum_slab_shares = lambda model: None
+        try:
+            saved["fp32_fault"] = fp32_step_result(
+                slab_model(dev, torch.float32, mesh, fused_train=True), batches[1], dev, mesh)
+        finally:
+            loop.sum_slab_shares = sound_sum
+    if rank == 0:
+        torch.save(saved, os.path.join(workdir, f"slab_train_{data}x{world // data}.pt"))
+    return {"rank": rank, "world": world, "mesh": [mesh.data, mesh.space], "rows": rows,
+            "warmup_ms": warm_ms, "step_ms": step_ms, "metrics": losses, "launches": launches,
+            "kernel_depths": seen, "peak_mem_gib": peak_gib, "params_digest": params,
+            "halo_exchanges_per_step": len(halos), "collectives": collectives}
+
+
+def child_slab_nonfused(workdir):
+    """Phase 22 (b), a rank: the non-fused step (the JAX CLI's default) with
+    the hypotheses cut over the ranks: 1 warm and 1 timed bf16 step, the
+    counters (every kernel 0) and the peak memory; one more step
+    profiled (``step_device_profile``)."""
+    import torch
+    from damvsnet_tpu_torch.parallel import make_mesh
+    from damvsnet_tpu_torch.train.loop import make_train_step
+    from damvsnet_tpu_torch.train.schedule import make_optimizer
+    from damvsnet_tpu_torch.train.state import TrainState
+    rank, world, dev = child_device()
+    mesh = make_mesh(data=1, space=world)
+    model = slab_model(dev, torch.bfloat16, mesh, fused_train=False, clamp_samples=False)
+    optimizer, scheduler = make_optimizer(model.parameters(), 1e-3, "10,12,14:2",
+                                          iters_per_epoch=1000)
+    state = TrainState(model, optimizer, scheduler)
+    step = make_train_step(device=dev, mesh=mesh)
+    t0 = time.perf_counter()
+    step(state, train_rows(0, range(TRAIN_B)))
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    reset_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with level_depths_held(model) as local:
+        metrics = step(state, train_rows(1, range(TRAIN_B)))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    metrics.pop("_images")
+    launches = read_counters()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    params = digest(model.parameters())
+    return {"rank": rank, "warmup_ms": warm_ms, "step_ms": step_ms,
+            "metrics": {k: float(v) for k, v in metrics.items()}, "launches": launches,
+            "local_depths": local,
+            "peak_mem_gib": peak_gib, "params_digest": params,
+            "profile": step_device_profile(lambda: step(state, train_rows(2, range(TRAIN_B))))}
+
+
+def step_device_profile(fn):
+    """One call of ``fn`` under torch.profiler: its host time, the device
+    time of its kernels, copies and fills (summed, overlap not removed),
+    the eight kernels with the most device time, and the collectives' host
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("Activity Buffer"):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    gloo = {e.key: {"count": e.count, "cpu_ms": e.cpu_time_total / 1e3}
+            for e in prof.key_averages() if e.key.startswith(("gloo:", "nccl:"))}
+    return {"profiled_wall_ms": wall, "device_ms": sum(by_name.values()),
+            "top_kernels_ms": [[n[:90], ms] for n, ms in top], "collectives": gloo}
+
+
+def check_slab_step(path, got, want):
+    """A slab step's fp32 (metrics, gradients, statistics) against the
+    one-process step's: loss at STEP_LOSS_RTOL, gradient relative L2 at
+    STEP_GRAD_L2, running statistics at DDP_STATS_RTOL of each tensor's
+    max. Returns the gaps."""
+    (m, g, s), (mw, gw, sw) = got, want
+    stats_rel = max(float((s[k] - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+                    for k, v in sw.items())
+    gaps = {"loss_slab": m["loss"], "loss_one_process": mw["loss"],
+            "grad_rel_l2": grad_rel_l2(g, gw), "running_stats_max_rel": stats_rel}
+    check(abs(m["loss"] - mw["loss"]) <= STEP_LOSS_RTOL * abs(mw["loss"]),
+          f"{path}: fp32 loss {m['loss']} vs one process {mw['loss']}")
+    check(gaps["grad_rel_l2"] <= STEP_GRAD_L2,
+          f"{path}: fp32 gradient relative L2 {gaps['grad_rel_l2']} > {STEP_GRAD_L2}")
+    check(stats_rel <= DDP_STATS_RTOL, f"{path}: running statistics off by {stats_rel}")
+    return gaps
+
+
+def phase_slab_train(dev, smi, workdir, data_ranks=(1, 2), nonfused_peak=None,
+                     backend="gloo"):
+    """Phase 22: (a) phase 7's fused step with the hypotheses cut over 2
+    ranks, (b) the non-fused step likewise (its peak per rank beside one
+    process's), (c) the fused step on the 2x2 mesh (4 ranks, 2 rows a data
+    rank); (a) and (c) in fp32 against the one-process step at B=4, the
+    planted fault (no space sum) beside (a). ``data_ranks``: which of (a)
+    (1, with (b)) and (c) (2) run; ``nonfused_peak``: phase 10's peak in
+    one process, printed beside (b)'s (None: not measured in this run);
+    ``backend`` "nccl": the ranks a card each (scripts/slab_cards_torch.py).
+    Returns ({path: {counter: launches}} summed over
+    the ranks, the summary)."""
+    import torch
+    global_batch = train_batch(range(TRAIN_B, 2 * TRAIN_B))
+    want = fp32_step_result(ddp_model(dev, torch.float32), global_batch, dev, None)
+    torch.cuda.empty_cache()
+    launches, summary = {}, {"card": smi}
+    for data in data_ranks:
+        world = 2 * data
+        path = f"training_slab_{data}x2"
+        child = {1: "slab_train", 2: "slab_train_2x2"}[data] + ("" if backend == "gloo"
+                                                                 else "_nccl")
+        ranks = spawn_ranks(child, workdir, world)
+        for r in ranks:
+            check_launches(f"{path} rank {r['rank']}", r["launches"],
+                           {"fused_adaptive_cost_volume": 3,
+                            "fused_adaptive_cost_volume_backward": 3}, TRAIN_STEPS)
+            for m in r["metrics"]:
+                check(all(math.isfinite(v) for v in m.values()), f"{path} metrics {m}")
+        check_slab_ranks(path, ranks, 2, counters=("fused_adaptive_cost_volume",))
+        check(all(r["metrics"] == ranks[0]["metrics"] for r in ranks),
+              f"{path}: the ranks' metrics differ")
+        check(all(r["params_digest"] == ranks[0]["params_digest"] for r in ranks),
+              f"{path}: the ranks' parameters drifted apart")
+        saved = torch.load(os.path.join(workdir, f"slab_train_{data}x2.pt"))
+        parity = {"fp32": check_slab_step(path, saved["fp32"], want)}
+        if "fp32_fault" in saved:
+            fault_l2 = grad_rel_l2(saved["fp32_fault"][1], want[1])
+            parity["fp32_fault_grad_rel_l2"] = fault_l2
+            check(fault_l2 > STEP_GRAD_L2, f"the planted fault (no space sum) passes: gradient "
+                  f"relative L2 {fault_l2} <= {STEP_GRAD_L2}")
+        summary[path] = {"ranks": [{k: r[k] for k in ("rank", "rows", "warmup_ms", "step_ms",
+                                                      "peak_mem_gib", "halo_exchanges_per_step",
+                                                      "collectives", "launches")}
+                                   for r in ranks], "parity_vs_one_process": parity}
+        launches[path] = sum_launches(ranks)
+        print(f"slab training {data}x2 ({world} ranks)", json.dumps(summary[path]), flush=True)
+        if data == 1:
+            nonfused = spawn_ranks("slab_nonfused", workdir)
+            for r in nonfused:
+                check_launches(f"training_nonfused_slab rank {r['rank']}", r["launches"], {}, 1)
+                check(all(math.isfinite(v) for v in r["metrics"].values()),
+                      f"non-fused slab step metrics {r['metrics']}")
+                check(r["local_depths"] == local_depth_rule(2),
+                      f"non-fused slab rank {r['rank']}: levels {r['local_depths']}")
+            check(all(r["params_digest"] == nonfused[0]["params_digest"] for r in nonfused),
+                  "the non-fused slab ranks' parameters drifted apart")
+            summary["training_nonfused_slab"] = {
+                "ranks": [{k: r[k] for k in ("rank", "warmup_ms", "step_ms", "peak_mem_gib",
+                                             "metrics", "profile")} for r in nonfused],
+                "one_process_peak_gib": nonfused_peak}
+            launches["training_nonfused_slab"] = sum_launches(nonfused)
+            print("slab training non-fused (2 ranks)",
+                  json.dumps(summary["training_nonfused_slab"]), flush=True)
+        torch.cuda.empty_cache()
+    return launches, summary
+
+
+def phase_slab_cli(smi, workdir):
+    """Phase 23: the training CLI on the 2x2 mesh (--mesh_data 2
+    --mesh_space 2, 4 ranks) at phase 18's 128x160, then a 1-rank
+    --resume from its checkpoint."""
+    runs = spawn_ranks("slab_cli", workdir, world=4)
+    logdir = os.path.join(workdir, "slab_run")
+    ckpts = sorted(f for f in os.listdir(logdir) if f.startswith("ckpt_"))
+    steps = CLI_TRAIN_SAMPLES // TRAIN_B
+    check(ckpts == ["ckpt_000001.pt"], f"checkpoints after the 2x2 epoch: {ckpts}")
+    check([r["step"] for r in runs] == [steps] * 4, f"steps {[r['step'] for r in runs]}")
+    resumed = spawn_ranks("slab_cli", workdir, world=1, distributed=False)[0]
+    check("resumed from" in resumed["log"] and "ckpt_000001.pt" in resumed["log"],
+          "the 1-rank run did not resume from the 2x2 checkpoint")
+    check((resumed["step"], resumed["epoch"]) == (2 * steps, 2),
+          f"1-rank resume ended at step {resumed['step']}, epoch {resumed['epoch']}")
+    summary = {"checkpoints": ckpts, "steps": [r["step"] for r in runs],
+               "resumed": {"step": resumed["step"], "epoch": resumed["epoch"]}, "card": smi}
+    print("training CLI on the 2x2 mesh (4 gloo ranks, then 1-rank resume)",
+          json.dumps(summary), flush=True)
+    return summary
+
+
 RANK_CHILDREN = {"ddp_train": child_ddp_train,
                  "ddp_train_nccl": lambda workdir: child_ddp_train(workdir, backend=None),
                  "nccl_step": child_nccl_step,
                  "train_cli": child_train_cli, "test_cli": child_test_cli,
-                 "fmt_sp": child_fmt_sp}
+                 "fmt_sp": child_fmt_sp, "slab_serve": child_slab_serve,
+                 "slab_train": child_slab_train,
+                 "slab_train_2x2": lambda workdir: child_slab_train(workdir, data=2),
+                 "slab_train_2x2_nccl": lambda workdir: child_slab_train(workdir, data=2,
+                                                                         backend=None),
+                 "slab_nonfused": child_slab_nonfused, "slab_cli": child_slab_cli}
 
 
 def rank_child(phase, workdir):
@@ -2220,6 +2768,11 @@ def main():
         train_cli = phase_train_cli(smi, workdir)
         scan_launches, scan = phase_scan_parallel(dev, smi, workdir, depth_tol)
         sp_launches, sp = phase_fmt_sp(sample, dev, smi, workdir, fmt["parity"]["bf16"]["tol"])
+        slab_launches, slab_serve = phase_slab_serving(sample, dev, smi, workdir, depth_tol)
+        slab_train_launches, slab_train = phase_slab_train(dev, smi, workdir,
+                                                           nonfused_peak=nonfused_peak)
+        slab_launches.update(slab_train_launches)
+        phase_slab_cli(smi, workdir)
 
     def summary(name, rows, source, replaces, counter):
         """bf16 rows summed over the stages (one request's or one step's
@@ -2236,6 +2789,7 @@ def main():
                    "training_ddp": ddp_launches[counter],
                    "test_cli_scan_parallel": scan_launches[counter],
                    "serving_fmt_sp": sp_launches[counter]}
+        by_path.update({path: n[counter] for path, n in slab_launches.items()})
         library = [r.get("library_ms") for r in main_rows]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2309,6 +2863,19 @@ def main():
         print(f"FMT sequence-parallel rank {r['rank']} ({r['tokens_per_rank']} tokens): "
               f"{sum(r['request_ms']) / len(r['request_ms']):.3f} ms per request, peak "
               f"{r['peak_mem_gib']:.2f} GiB (bf16, {smi})", flush=True)
+    for r in slab_serve["ranks"]:
+        print(f"slab serving rank {r['rank']} (2 gloo ranks sharing the card, D/2 each): "
+              f"{sum(r['request_ms']) / len(r['request_ms']):.3f} ms per request, peak "
+              f"{r['peak_mem_gib']:.2f} GiB (bf16, {smi})", flush=True)
+    for path in ("training_slab_1x2", "training_slab_2x2"):
+        for r in slab_train[path]["ranks"]:
+            print(f"{path} rank {r['rank']} (gloo ranks sharing the card): "
+                  f"{sum(r['step_ms']) / len(r['step_ms']):.3f} ms per step, peak "
+                  f"{r['peak_mem_gib']:.2f} GiB (512x640, N=5, bf16, {smi})", flush=True)
+    for r in slab_train["training_nonfused_slab"]["ranks"]:
+        print(f"non-fused slab training rank {r['rank']}: {r['step_ms']:.3f} ms for its step, "
+              f"peak {r['peak_mem_gib']:.2f} GiB (one process: {nonfused_peak:.2f} GiB; "
+              f"512x640, B=4, N=5, bf16, {smi})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

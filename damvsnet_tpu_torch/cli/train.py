@@ -26,10 +26,13 @@ Across ranks, started by a launcher that sets torchrun's environment:
     torchrun --nproc_per_node=<cards> -m damvsnet_tpu_torch.cli.train ...
 
 each rank trains on its card (``LOCAL_RANK``) its rows of the global
-``--batch_size`` batch (data parallelism over every rank, ``--mesh_data``;
-NCCL by default, ``--dist_backend gloo`` where ranks share a card or run
-on the CPU). ``--mesh_space`` above 1, the depth-slab axis, raises, naming
-the ROADMAP item.
+``--batch_size`` batch (NCCL by default, ``--dist_backend gloo`` where
+ranks share a card or run on the CPU). The ranks form a (data, space)
+mesh, data-major: ``--mesh_space S`` cuts every stage's depth hypotheses
+into S slabs over the ranks of a space group, which take the same rows
+(the depth-slab axis, ``parallel/slab.py``); ``--mesh_data`` (default:
+the ranks over S) splits the batch, and ``--mesh_data x --mesh_space``
+must be the number of ranks.
 """
 from __future__ import annotations
 
@@ -89,9 +92,11 @@ def build_parser():
                    help="write a torch.profiler trace of 5 steps after 1 warm "
                         "step here, one file per rank")
     p.add_argument("--mesh_data", type=int, default=None,
-                   help="data-parallel ranks (default and only value: all ranks)")
+                   help="data-parallel ranks, each its rows of the batch (default: "
+                        "the ranks over --mesh_space)")
     p.add_argument("--mesh_space", type=int, default=1,
-                   help="the depth-slab axis; above 1 it raises (not ported)")
+                   help="'space' mesh axis size: every stage's depth hypotheses cut "
+                        "into this many slabs over the ranks of a space group")
     p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
                    help="the process group's backend (default: nccl on CUDA, gloo "
                         "on the CPU); NCCL puts at most one rank on a card")
@@ -101,17 +106,8 @@ def build_parser():
     return p
 
 
-def check_supported(args) -> None:
-    """Raise on a flag that asks for what the port does not have yet."""
-    if args.mesh_space > 1:
-        raise NotImplementedError(
-            "--mesh_space > 1: the depth-slab sharding of the cost volumes over a "
-            "'space' axis is not ported (ROADMAP Queue 1 item 10.2b)")
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    check_supported(args)
 
     import torch
 
@@ -143,7 +139,8 @@ def main(argv=None):
                           grad_method=args.grad_method, use_fmt=args.use_fmt,
                           use_geo_fusion=not args.no_geo_fusion, cr_base_chs=cr_base_chs,
                           fused_train=args.fused_train,
-                          clamp_samples=args.fused_train)
+                          clamp_samples=args.fused_train, slab_group=mesh.space_group,
+                          slab_stats_group=mesh.slab_stats_group)
 
     train_dataset = dataset_cls(args.trainpath, args.trainlist, "train",
                                 args.nviews, args.numdepth, args.interval_scale)

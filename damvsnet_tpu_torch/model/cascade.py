@@ -61,6 +61,18 @@ first JAX convolution casts it.
 volumes, 32, 16 and 8 channels wide, and the JAX package's shared
 regularizer fails at init (flax's ScopeParamShapeError at stage 2).
 
+``slab_group`` (JAX's ``slab_axis``, ``parallel/slab.py``): each rank of
+the group holds one slab of every stage's depth hypotheses. Once a stage's
+hypotheses are final (after ADIA, the clamp and the trilinear snap) the
+rank keeps its D/S of them; the cost volume is built on them by the
+stage's route (K1, K4's variance entry or the plain warp; the non-fused
+weight nets' batch statistics over ``slab_stats_group``), from the views'
+features marked so that their gradient sums the ranks' shares; CostRegNet
+runs on the slab, and its one-channel cost is gathered over D, so the
+stats tail (K2 in serving) and the stage handoff run whole, and equal, on
+every rank. With ``reg_mode="georeg"`` the volume is gathered and
+GeoRegNet2d runs whole, the function GSPMD runs under JAX's constraint.
+
 ``model.train()`` selects training: BatchNorm uses batch statistics
 (nn/blocks.py); with ``fused_train`` the folded weight net keeps its
 running statistics (nn/aggweight.py). Inputs keep the JAX layout: images
@@ -72,13 +84,16 @@ prob_volume, depth_values); the top level repeats stage 3. There is no
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..nn.aggweight import AggWeightNetVolume, fold_aggweight
+from ..nn.blocks import batch_stats_group
 from ..nn.costreg import CostRegNet
 from ..nn.feature import FeatureNet
 from ..nn.fmt import FMTWithPathway
@@ -94,6 +109,8 @@ from ..ops.regression import prob_volume_stats
 from ..ops.resize import resize_bilinear, resize_trilinear_depth
 from ..ops.sampling import uncertainty_aware_samples
 from ..ops.warp import matmul_fp32, plane_sweep_warp
+from ..parallel import slab
+from ..parallel.collectives import gather_tokens, sum_backward
 from ..utils.device import resolve_device
 
 STAGE_CHANNELS = (32, 16, 8)  # FPN output channels, stages 1..3
@@ -138,7 +155,14 @@ class CascadeMVSNet(nn.Module):
     raises (see the module's docstring). fmt_sp_group: a process group
     over which the FMT's attention runs sequence-parallel where its size
     (more than 1) divides the tokens (JAX's ``fmt_sp_axis``); every rank of
-    it runs the same request. plain: run the kernels' plain
+    it runs the same request. slab_group: a process group over whose ranks
+    the depth hypotheses are cut into slabs (JAX's ``slab_axis``; every
+    stage's D must divide into its size, or it raises), each rank of it on
+    the same samples; slab_stats_group: the group a slab region's
+    training BatchNorms reduce over (``Mesh.slab_stats_group``, every rank
+    of the mesh; it may be left out only where the slab group is every
+    rank, and raises otherwise).
+    plain: run the kernels' plain
     PyTorch versions instead of the CUDA kernels (under autograd in training) — a reference
     for checking the kernels on the card; nothing selects it on its own.
     device: where the parameters live, CUDA unless the caller names
@@ -155,7 +179,8 @@ class CascadeMVSNet(nn.Module):
                  fused_train: bool = False, use_fmt: bool = False,
                  share_cr: bool = False, grad_method: str = "detach",
                  reg_mode: str = "costreg", refine: bool = False,
-                 arch_mode: str = "fpn", fmt_sp_group=None):
+                 arch_mode: str = "fpn", fmt_sp_group=None, slab_group=None,
+                 slab_stats_group=None):
         super().__init__()
         if len(ndepths) != 3 or len(cr_base_chs) != 3:
             raise ValueError(f"the cascade has 3 stages, got ndepths={ndepths}, "
@@ -177,6 +202,16 @@ class CascadeMVSNet(nn.Module):
             raise ValueError("georeg max-pools the previous probability volume along D "
                              "once at stage 2 and twice at stage 3: ndepths must be "
                              f"(4k, 2k, k/2), got {tuple(ndepths)}")
+        if slab_group is not None and dist.get_world_size(slab_group) == 1:
+            slab_group = slab_stats_group = None
+        if slab_group is not None:
+            size = dist.get_world_size(slab_group)
+            bad = [d for d in ndepths if not slab.slabbed(d, size)]
+            if bad:
+                raise ValueError(f"slab_group of {size} ranks: ndepths {tuple(ndepths)} has "
+                                 f"D={bad} that does not cut into {size} slabs of equal depth")
+        self.slab_group = slab_group
+        self.slab_stats_group = slab.stats_group(slab_group, slab_stats_group)
         self.ndepths = tuple(ndepths)
         self.compute_dtype = compute_dtype
         self.plain = plain
@@ -200,7 +235,8 @@ class CascadeMVSNet(nn.Module):
                 GeoRegNet2d(c, enc) for c, enc in zip(STAGE_CHANNELS, ("std", "z", "z")))
         else:
             self.cost_regularization = nn.ModuleList(
-                CostRegNet(c, base_channels=base)
+                CostRegNet(c, base_channels=base, slab_group=self.slab_group,
+                           slab_stats_group=self.slab_stats_group)
                 for c, base in zip(STAGE_CHANNELS, cr_base_chs))
         if agg_mode == "adaptive":
             self.DepthNet = DepthNet(STAGE_CHANNELS)
@@ -260,9 +296,21 @@ class CascadeMVSNet(nn.Module):
             # in the compute dtype, is upcast to theirs where they are fp32
             ref_fea = ref_fea.to(src_feas[0].dtype)
             fused = fuse_projection_matrices(proj_matrices[name])
-            volume = self._cost_volume(stage_idx, ref_fea, src_feas, fused[:, 0],
-                                       [fused[:, v] for v in range(1, n)], samples)
+            group, local, bn_scope = self.slab_group, samples, contextlib.nullcontext()
+            if group is not None:  # this rank's slab of the hypotheses
+                # a view: a [B, D, h, w] sweep expanded from [B, D] stays
+                # stride 0; detached, as every volume route detaches them
+                local = samples.detach().chunk(dist.get_world_size(group), 1)[
+                    dist.get_rank(group)]
+                ref_fea = sum_backward(ref_fea, group)
+                src_feas = [sum_backward(f, group) for f in src_feas]
+                bn_scope = batch_stats_group(self.slab_stats_group)
+            with bn_scope:
+                volume = self._cost_volume(stage_idx, ref_fea, src_feas, fused[:, 0],
+                                           [fused[:, v] for v in range(1, n)], local)
             volume = volume.permute(0, 4, 1, 2, 3).to(self.compute_dtype)
+            if self.reg_mode == "georeg" and group is not None:
+                volume = gather_tokens(volume, 2, group)
             if self.reg_mode == "georeg":
                 prob_last = None
                 if stage_idx >= 1:  # the previous probability volume, upsampled x2
@@ -271,6 +319,8 @@ class CascadeMVSNet(nn.Module):
                 cost = self.cost_regularization[stage_idx](volume, stage_idx, prob_last)
             else:
                 cost = self.cost_regularization[stage_idx](volume)[:, 0]
+                if group is not None:
+                    cost = gather_tokens(cost, 1, group)
             out = stats(cost, samples)
             out["depth_values"] = samples
             depth, sigma, prob_volume = out["depth"], out["variance"], out["prob_volume"]
@@ -280,6 +330,21 @@ class CascadeMVSNet(nn.Module):
             outputs["refined_depth"] = self.refine_network(imgs[:, 0].float(), depth,
                                                            self.compute_dtype)
         return outputs
+
+    def slab_share_parameters(self) -> list:
+        """The parameters whose gradient each rank of the slab group holds
+        one slab's share of, to be summed over the group: the slab blocks
+        of every CostRegNet and the weight nets. Empty without a group."""
+        if self.slab_group is None:
+            return []
+        size = dist.get_world_size(self.slab_group)
+        params = []
+        for stage_idx, ndepth in enumerate(self.ndepths):
+            if self.reg_mode == "costreg":
+                params += slab.slab_parameters(self.cost_regularization[stage_idx], ndepth, size)
+            if self.agg_mode == "adaptive":
+                params += list(self.DepthNet.weight_net[stage_idx].parameters())
+        return params
 
     def _cost_volume(self, stage_idx, ref_fea, src_feas, ref_proj, src_projs, samples):
         """[B, D, h, w, C] in the feature dtype, contiguous: its

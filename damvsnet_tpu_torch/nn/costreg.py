@@ -10,17 +10,34 @@ conv7/conv9/conv11 (decoders), prob.
 
 Layout: [B, C, D, H, W]; the fused cost volume arrives as a
 ``channels_last_3d`` view.
+
+``CostRegNet(slab_group=...)``: the depth-slab axis (JAX's ``slab_axis``):
+each rank of the group holds one slab of the volume's D axis and every
+block, the final ``prob`` conv included, runs through
+``parallel/slab.py::run_block``; ``slab_stats_group`` is the group its
+BatchNorms take their training statistics over (every rank of the mesh;
+it may be left out only where the slab group is every rank). Reg2d is
+not slabbed, as in JAX.
 """
 from __future__ import annotations
 
 import torch.nn as nn
 
+from ..parallel import slab
 from .blocks import Conv3dBlock, Deconv3dBlock, conv
 
 
 class CostRegNet(nn.Module):
-    def __init__(self, in_channels: int, base_channels: int = 8):
+    # each block's (level it reads, level it writes); level i has D / 2^i planes
+    LEVELS = {"conv0": (0, 0), "conv1": (0, 1), "conv2": (1, 1), "conv3": (1, 2),
+              "conv4": (2, 2), "conv5": (2, 3), "conv6": (3, 3), "conv7": (3, 2),
+              "conv9": (2, 1), "conv11": (1, 0), "prob": (0, 0)}
+
+    def __init__(self, in_channels: int, base_channels: int = 8, slab_group=None,
+                 slab_stats_group=None):
         super().__init__()
+        self.slab_group = slab_group
+        self.slab_stats_group = slab.stats_group(slab_group, slab_stats_group)
         c = base_channels
         self.conv0 = Conv3dBlock(in_channels, c, 3, 1, 1)
         self.conv1 = Conv3dBlock(c, 2 * c, 3, 2, 1)
@@ -35,15 +52,31 @@ class CostRegNet(nn.Module):
         self.prob = nn.Conv3d(c, 1, 3, padding=1, bias=False)
 
     def forward(self, x):
-        """[B, C, D, H, W] -> [B, 1, D, H, W] regularized cost."""
-        conv0 = self.conv0(x)
-        conv2 = self.conv2(self.conv1(conv0))
-        conv4 = self.conv4(self.conv3(conv2))
-        x = self.conv6(self.conv5(conv4))
-        x = conv4 + self.conv7(x)
-        x = conv2 + self.conv9(x)
-        x = conv0 + self.conv11(x)
-        return conv(x, self.prob)
+        """[B, C, D, H, W] -> [B, 1, D, H, W] regularized cost (with a slab
+        group: this rank's slabs of both)."""
+        run = self._runner(x.shape[2])
+        conv0 = run("conv0", x)
+        conv2 = run("conv2", run("conv1", conv0))
+        conv4 = run("conv4", run("conv3", conv2))
+        x = run("conv6", run("conv5", conv4))
+        x = conv4 + run("conv7", x)
+        x = conv2 + run("conv9", x)
+        x = conv0 + run("conv11", x)
+        return run("prob", x)
+
+    def _runner(self, depth):
+        """run(name, x): the named block on x; with a slab group, on this
+        rank's slabs of a volume of ``depth`` planes a rank, or whole where
+        its level does not divide (``slab.run_block``)."""
+        if self.slab_group is None:
+            return lambda name, x: conv(x, self.prob) if name == "prob" else getattr(self, name)(x)
+        slabs = slab.level_slabs(depth, self.slab_group)
+
+        def run(name, x):
+            a, b = self.LEVELS[name]
+            return slab.run_block(getattr(self, name), x, slabs[a], slabs[b], self.slab_group,
+                                  self.slab_stats_group)
+        return run
 
 
 class Reg2d(nn.Module):

@@ -8,10 +8,13 @@ device, and the collectives are explicit:
     (``batch_rows``); DDP averages the gradients over the data group, and
     training-mode BatchNorm and the losses reduce their statistics over it
     (``nn/blocks.py::batch_stats_group``, ``losses/``).
-  * "space": FMT's sequence parallelism (``parallel/fmt_sp.py``): the ranks
-    of a space group hold the same sample and split its tokens. The JAX
-    package's depth-slab sharding of the cost volumes over this axis
-    (``slab_constraint``) is not ported yet (ROADMAP Queue 1, item 10.2b).
+  * "space": the ranks of a space group hold the same samples. The
+    depth-slab axis (``parallel/slab.py``, JAX's ``slab_constraint``): each
+    rank holds one slab of every cost volume's depth hypotheses and runs
+    CostRegNet on it, with halo exchanges between neighbours; its
+    BatchNorms take their statistics over every rank of the mesh
+    (``Mesh.slab_stats_group``). FMT's sequence parallelism
+    (``parallel/fmt_sp.py``) splits a sample's tokens over such a group.
 
 Ranks are laid out data-major, as JAX reshapes its devices to (data,
 space): rank = d * space + s. A launcher such as ``torchrun`` sets RANK,
@@ -84,25 +87,34 @@ def shard_work_items(items, process_index: int | None = None,
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place on the (data, space) mesh. A group is None where
-    its axis has one rank: there is nothing to reduce over."""
+    """This rank's place on the (data, space) mesh. ``data_group``: the
+    ranks of this rank's space index (a column: DDP, BatchNorm and the
+    losses reduce over it); ``space_group``: the ranks of this rank's data
+    index (a row: the depth slabs); ``slab_stats_group``: every rank, over
+    which a slab region's BatchNorm takes its statistics (the global batch
+    and the whole depth axis). A group is None where it would hold one
+    rank: there is nothing to reduce over."""
     data: int = 1
     space: int = 1
     data_rank: int = 0
     data_group: object = None
     space_group: object = None
+    space_rank: int = 0
+    slab_stats_group: object = None
 
 
 def make_mesh(data: int | None = None, space: int = 1) -> Mesh:
     """The (data, space) mesh over every rank of the process group (one
-    rank without one). data defaults to world // space; data * space must
-    be the world size. Every rank must call it, in the same order, as it
-    creates the groups."""
+    rank without one). data defaults to world // space (at least 1); data
+    * space must be the world size. Ranks are data-major (rank = d * space
+    + s). Every rank must call it, in the same order, as it creates the
+    groups: with both axes above 1, one group for every row and then one
+    for every column, in order."""
     initialized = dist.is_initialized()
     world = dist.get_world_size() if initialized else 1
     rank = dist.get_rank() if initialized else 0
     if data is None:
-        data = world // space
+        data = max(world // space, 1)
     if data < 1 or space < 1 or data * space != world:
         raise ValueError(f"mesh {data}x{space} != {world} ranks")
     d, s = divmod(rank, space)
@@ -112,10 +124,11 @@ def make_mesh(data: int | None = None, space: int = 1) -> Mesh:
     elif space > 1 and data == 1:
         space_group = dist.group.WORLD
     elif data > 1:
-        raise NotImplementedError(
-            f"mesh {data}x{space}: a data axis beside a space axis comes with the "
-            "depth-slab sharding (ROADMAP Queue 1 item 10.2b)")
-    return Mesh(data, space, d, data_group, space_group)
+        rows = [dist.new_group(list(range(i * space, (i + 1) * space))) for i in range(data)]
+        cols = [dist.new_group(list(range(j, world, space))) for j in range(space)]
+        space_group, data_group = rows[d], cols[s]
+    stats_group = dist.group.WORLD if space > 1 else None
+    return Mesh(data, space, d, data_group, space_group, s, stats_group)
 
 
 def batch_rows(batch_size: int, rank: int, world: int, grad_accum: int = 1) -> list:

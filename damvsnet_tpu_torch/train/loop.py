@@ -16,7 +16,18 @@ over the group (``nn.blocks.batch_stats_group``), the losses return each
 rank's share of the global loss (``losses/``), which the step scales by the
 world size so that DDP's average of the gradients is the global loss's, and
 the metrics are averaged over the group before anything reads them. ``TrainState.model`` stays the bare module, so a
-checkpoint carries no DDP prefix. Only rank 0 writes summaries and
+checkpoint carries no DDP prefix.
+
+On a mesh with a space axis, a model built with its space group
+(``CascadeMVSNet(slab_group=)``, the depth-slab axis of
+``parallel/slab.py``): the ranks of a space group take the same rows and
+compute the same loss; DDP, the loss scale and the metric mean are the
+data group's (the ranks of this rank's space index). The parameters start
+as those of the slab group's first rank; after the backward, the
+gradients each rank holds one slab's share of
+(``CascadeMVSNet.slab_share_parameters``) are summed over the slab group
+in one all-reduce, so that every parameter's gradient is the one-process
+gradient on the global batch. Only rank 0 writes summaries and
 checkpoints; every rank can restore.
 
 Scalars and image summaries go to a ``SummaryWriter`` (``train/logging.py``)
@@ -76,6 +87,35 @@ def _world(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+def _coalesced(tensors, collective) -> None:
+    """``collective`` on each dtype's tensors flattened into one, the
+    result copied back into them."""
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        collective(flat)
+        for t, part in zip(ts, flat.split([t.numel() for t in ts])):
+            t.copy_(part.view_as(t))
+
+
+def sync_slab_replicas(model) -> None:
+    """Copy the slab group's first rank's parameters and buffers to every
+    rank of the group (DDP broadcasts over the data group only)."""
+    src = dist.get_global_rank(model.slab_group, 0)
+    with torch.no_grad():
+        _coalesced(list(model.parameters()) + list(model.buffers()),
+                   lambda flat: dist.broadcast(flat, src=src, group=model.slab_group))
+
+
+def sum_slab_shares(model) -> None:
+    """Sum over the model's slab group the gradients each rank holds one
+    slab's share of, in one all-reduce a dtype."""
+    _coalesced([p.grad for p in model.slab_share_parameters() if p.grad is not None],
+               lambda flat: dist.all_reduce(flat, group=model.slab_group))
+
+
 def _group_mean(metrics: dict, group) -> dict:
     """Each scalar metric averaged over the group's ranks, one all-reduce
     (their batches are equal parts of the global batch)."""
@@ -111,7 +151,8 @@ def make_train_step(dlossw=(0.5, 1.0, 2.0), use_cpc: bool = True,
     mesh: with more than one data rank, ``batch`` is this rank's rows of the
     global batch and the step is the global batch's (see the module's
     docstring); DDP's gradient all-reduce runs with the last microbatch's
-    backward only (``no_sync`` before)."""
+    backward only (``no_sync`` before). With a slab group, the slab shares
+    are summed over it after the last backward."""
     dev = resolve_device(device)
     group = _data_group(mesh)
     world = _world(group)
@@ -134,6 +175,9 @@ def make_train_step(dlossw=(0.5, 1.0, 2.0), use_cpc: bool = True,
     def train_step(state: TrainState, batch: dict) -> dict:
         model = state.model
         model.train()
+        if model.slab_group is not None and wrapped.get("synced") is not model:
+            sync_slab_replicas(model)  # before DDP's own broadcast
+            wrapped["synced"] = model
         net = model if group is None else ddp(model)
         batch = batch_to_device(batch, dev)
         if grad_accum > 1:
@@ -157,6 +201,8 @@ def make_train_step(dlossw=(0.5, 1.0, 2.0), use_cpc: bool = True,
             depths.append(outputs["depth"].detach())
             if j == 0:
                 images = _first_sample_images(outputs, mb)
+        if model.slab_group is not None:
+            sum_slab_shares(model)
         state.optimizer.step()
         if state.scheduler is not None:
             state.scheduler.step()

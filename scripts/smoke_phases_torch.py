@@ -12,7 +12,11 @@ adaptive serving cascade), 7 (the fused training step), 14 (FMT serving),
 the ranks' phases, each two processes of chip_smoke.py on the card: 17
 (data-parallel fused training), 18 (the training CLI on 2 ranks), 19 (the
 scan-parallel test CLI), 20 (FMT serving with sequence parallelism; it
-runs phase 14 first when the list has not, for its bf16 limit). Each
+runs phase 14 first when the list has not, for its bf16 limit), and the
+depth-slab axis: 21 (slab serving on 2 ranks), 22 (slab training: the
+fused step on 2 ranks and on the 2x2 mesh, the non-fused step on 2 ranks;
+its one-process peak is phase 10's, not measured here), 23 (the training
+CLI on the 2x2 mesh, then a 1-rank resume). Each
 prints its chip_smoke.py lines, prefixed with the tree, and fails as the
 smoke does.
 """
@@ -66,6 +70,13 @@ for phase in sys.argv[1:]:
         if fmt is None:
             fmt = c.phase_fmt_serving(sample, dev)[2]
         c.phase_fmt_sp(sample, dev, smi, workdir.name, fmt["parity"]["bf16"]["tol"])
+    elif phase == "21":
+        rng = float(sample["depth_values"][-1] - sample["depth_values"][0])
+        c.phase_slab_serving(sample, dev, smi, workdir.name, c.DEPTH_TOL_SHARE * rng)
+    elif phase == "22":
+        c.phase_slab_train(dev, smi, workdir.name)
+    elif phase == "23":
+        c.phase_slab_cli(smi, workdir.name)
     torch.cuda.empty_cache()
 workdir.cleanup()
 """
@@ -74,7 +85,8 @@ workdir.cleanup()
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("phases", nargs="+",
-                    choices=["5", "7", "14", "15", "16", "17", "18", "19", "20"])
+                    choices=["5", "7", "14", "15", "16", "17", "18", "19", "20", "21",
+                             "22", "23"])
     ap.add_argument("--trees", nargs="+", default=[REPO])
     args = ap.parse_args()
     for tree in args.trees:

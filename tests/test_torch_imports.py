@@ -73,7 +73,7 @@ def test_every_module_is_covered():
     depth writer, fusion, native library, evaluation, CLIs) and the
     distributed and tooling slice (process groups, collectives, FMT's
     sequence parallelism, the event writer, the profiler, the
-    visualizations) are among them."""
+    visualizations) and the depth-slab axis are among them."""
     mods = {m for _, m in _modules()}
     assert {"damvsnet_tpu_torch.losses.crossview", "damvsnet_tpu_torch.losses.supervised",
             "damvsnet_tpu_torch.train.loop", "damvsnet_tpu_torch.train.state",
@@ -94,7 +94,8 @@ def test_every_module_is_covered():
             "damvsnet_tpu_torch.cli.colmap2mvsnet", "damvsnet_tpu_torch.parallel",
             "damvsnet_tpu_torch.parallel.mesh", "damvsnet_tpu_torch.parallel.collectives",
             "damvsnet_tpu_torch.parallel.fmt_sp", "damvsnet_tpu_torch.train.logging",
-            "damvsnet_tpu_torch.train.profiler", "damvsnet_tpu_torch.utils.visualize"} <= mods
+            "damvsnet_tpu_torch.train.profiler", "damvsnet_tpu_torch.utils.visualize",
+            "damvsnet_tpu_torch.parallel.slab"} <= mods
 
 
 def test_package_imports_without_cv2_and_pil():

@@ -104,12 +104,13 @@ def take_rows(batch, rows):
     return batch[rows]
 
 
-def port_step(batch, config, grad_accum, mesh=None):
-    """One ``make_train_step`` step from the trained weights under SGD with
-    lr 0: (metrics, {name: gradient}, state_dict), all numpy."""
+def port_step(batch, config, grad_accum, mesh=None, seeded=()):
+    """One ``make_train_step`` step from the trained weights (``seeded``
+    modules at their seeded init) under SGD with lr 0: (metrics, {name:
+    gradient}, state_dict), all numpy."""
     torch.manual_seed(0)
     model = CascadeMVSNet(ndepths=NDEPTHS, device="cpu", **config)
-    load_bench_weights(model, WEIGHTS)
+    load_bench_weights(model, WEIGHTS, seeded=seeded)
     state = TrainState(model, torch.optim.SGD(model.parameters(), lr=0.0))
     step = make_train_step(grad_accum=grad_accum, device="cpu", mesh=mesh)
     with torch.backends.mkldnn.flags(enabled=False):
@@ -333,14 +334,25 @@ def test_initialize_without_an_environment(monkeypatch):
         make_mesh(data=2)
 
 
-def test_data_beside_space_raises_with_its_roadmap_item(monkeypatch):
-    """A 2x2 mesh needs the depth-slab axis; it raises before it makes any
-    group (the world of four is only pretended here)."""
+def test_mesh_2x2_makes_every_row_then_every_column(monkeypatch):
+    """On a 2x2 mesh every rank creates the same groups in the same order,
+    the two rows and then the two columns, and keeps its own row as the
+    space group and its own column as the data group; the slab
+    statistics span every rank (the world of four is only pretended here:
+    tests/test_torch_slab.py builds it on four processes)."""
+    made = []
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 4)
-    monkeypatch.setattr(dist, "get_rank", lambda group=None: 0)
-    with pytest.raises(NotImplementedError, match="item 10.2b"):
-        make_mesh(data=2, space=2)
+    monkeypatch.setattr(dist, "new_group", lambda ranks: made.append(tuple(ranks)) or tuple(ranks))
+    for rank in range(4):
+        monkeypatch.setattr(dist, "get_rank", lambda group=None: rank)
+        made.clear()
+        mesh = make_mesh(data=2, space=2)
+        assert made == [(0, 1), (2, 3), (0, 2), (1, 3)]
+        d, s = divmod(rank, 2)
+        assert (mesh.data_rank, mesh.space_rank) == (d, s)
+        assert mesh.space_group == (2 * d, 2 * d + 1) and mesh.data_group == (s, 2 + s)
+        assert mesh.slab_stats_group is dist.group.WORLD
 
 
 def test_failed_rendezvous_raises(monkeypatch):

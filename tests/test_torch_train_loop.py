@@ -193,12 +193,12 @@ def test_cli_trains_one_epoch_and_resumes(tiny_synthetic, tmp_path):
     assert resumed.state.step == 4 and resumed.state.epoch == 2
 
 
-@pytest.mark.parametrize("flags", [["--mesh_space", "2"]])
-def test_cli_raises_on_what_the_port_lacks(tiny_synthetic, tmp_path, flags):
-    """The depth-slab 'space' axis is not ported; ``--profile_dir``, which
-    raised here before, writes its trace (tests/test_torch_tooling.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10.2b"):
-        cli_train.main(_CLI + ["--epochs", "1", "--logdir", str(tmp_path)] + flags)
+def test_cli_mesh_space_needs_its_ranks(tiny_synthetic, tmp_path):
+    """--mesh_space 2 builds a 1x2 mesh, which one process cannot hold: it
+    raises as JAX's make_mesh asserts (tests/test_torch_slab.py trains on
+    the 2x2 mesh)."""
+    with pytest.raises(ValueError, match="mesh 1x2 != 1 ranks"):
+        cli_train.main(_CLI + ["--epochs", "1", "--logdir", str(tmp_path), "--mesh_space", "2"])
 
 
 def test_cli_share_cr_raises_as_jax_does(tiny_synthetic, tmp_path):
