@@ -48,8 +48,9 @@ def build_parser():
     p.add_argument("--depth_inter_r", default="4,2,1")
     p.add_argument("--cr_base_chs", default="8,8,8")
     p.add_argument("--share_cr", action="store_true")
-    p.add_argument("--grad_method", default="detach", choices=["detach", "undetach"])
-    p.add_argument("--agg_mode", default="adaptive", choices=["adaptive", "variance"])
+    # free-form, as in the JAX CLI: the model raises on a value it lacks
+    p.add_argument("--grad_method", default="detach")
+    p.add_argument("--agg_mode", default="adaptive")
     p.add_argument("--use_fmt", action="store_true")
     p.add_argument("--no_geo_fusion", action="store_true")
     p.add_argument("--dtype", default="auto", choices=["auto", "bf16", "f32"],

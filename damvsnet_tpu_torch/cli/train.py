@@ -1,6 +1,6 @@
 """Training CLI; counterpart of damvsnet_tpu/cli/train.py (flag surface of
-the reference train.py:19-77, less the JAX package's XLA-cache and
-debug-NaN flags).
+the reference train.py:19-77; every flag of the JAX CLI parses here, with
+its choices and default).
 
     python -m damvsnet_tpu_torch.cli.train --dataset dtu_yao \
         --trainpath <dtu_training> --trainlist lists/dtu/train.txt \
@@ -27,7 +27,11 @@ Across ranks, started by a launcher that sets torchrun's environment:
 
 each rank trains on its card (``LOCAL_RANK``) its rows of the global
 ``--batch_size`` batch (NCCL by default, ``--dist_backend gloo`` where
-ranks share a card or run on the CPU). The ranks form a (data, space)
+ranks share a card or run on the CPU). ``--debug_nans`` runs with
+torch's anomaly detection on (JAX's jax_debug_nans, whose help names it as
+the analog): a NaN out of a backward raises, naming its function. ``--mode``
+takes JAX's choices and, as there, is never read; ``--cache_dir`` names
+JAX's XLA compilation cache and has no effect. The ranks form a (data, space)
 mesh, data-major: ``--mesh_space S`` cuts every stage's depth hypotheses
 into S slabs over the ranks of a space group, which take the same rows
 (the depth-slab axis, ``parallel/slab.py``); ``--mesh_data`` (default:
@@ -37,12 +41,16 @@ must be the number of ranks.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
+
+_NO_EFFECT = "accepted for the JAX CLI's command lines; no effect in the port"
 
 
 def build_parser():
     p = argparse.ArgumentParser("damvsnet-tpu-torch train")
-    p.add_argument("--mode", default="train", choices=["train"])
+    p.add_argument("--mode", default="train", choices=["train", "test", "profile"],
+                   help=f"{_NO_EFFECT}: never read, as in the JAX CLI")
     p.add_argument("--model", default="mvsnet")
     p.add_argument("--dataset", default="dtu_yao")
     p.add_argument("--trainpath", default=None)
@@ -82,6 +90,8 @@ def build_parser():
                         "net (its BNs on running statistics) and clamped "
                         "hypotheses; default: the plain warp, the weight "
                         "net's batch statistics, unclamped hypotheses")
+    p.add_argument("--cache_dir", default="~/.cache/jax_damvsnet",
+                   help=f"{_NO_EFFECT}: there is no XLA compilation cache")
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--grad_accum", type=int, default=1)
     p.add_argument("--save_freq", type=int, default=0,
@@ -103,12 +113,23 @@ def build_parser():
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda, this rank's card; raises "
                         "without one)")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="run with torch.autograd's anomaly detection (JAX: "
+                        "jax_debug_nans): a NaN out of a backward raises")
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
+    import torch
+    with (torch.autograd.set_detect_anomaly(True) if args.debug_nans
+          else contextlib.nullcontext()):
+        return train(args)
+
+
+def train(args):
+    """The run ``main`` parses for."""
     import torch
 
     from ..data import find_dataset_def
@@ -135,6 +156,8 @@ def main(argv=None):
         dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[args.dtype]
     cr_base_chs = tuple(int(x) for x in args.cr_base_chs.split(",") if x)
     model = CascadeMVSNet(ndepths=ndepths, compute_dtype=dtype, device=device,
+                          depth_intervals_ratio=tuple(
+                              float(x) for x in args.depth_inter_r.split(",") if x),
                           agg_mode=args.agg_mode, share_cr=args.share_cr,
                           grad_method=args.grad_method, use_fmt=args.use_fmt,
                           use_geo_fusion=not args.no_geo_fusion, cr_base_chs=cr_base_chs,

@@ -1,5 +1,5 @@
-"""MVSNet-format cam.txt IO and per-stage camera matrices (copy of
-damvsnet_tpu/core/cameras.py:48-118).
+"""The camera model, MVSNet-format cam.txt IO and per-stage camera
+matrices (copy of damvsnet_tpu/core/cameras.py), in numpy.
 
 cam.txt (the reference's readers, datasets/dtu_yao.py:56-74 and
 datasets/general_eval.py:59-79):
@@ -18,7 +18,31 @@ datasets/dtu_yao.py:222-243).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+
+
+@dataclasses.dataclass
+class Camera:
+    """A pinhole camera: K (3x3 intrinsics) + E (4x4 world->cam extrinsics)."""
+
+    intrinsics: np.ndarray  # (3, 3) float32
+    extrinsics: np.ndarray  # (4, 4) float32
+    depth_min: float = 0.0
+    depth_interval: float = 0.0
+    num_depth: int = 0
+    depth_max: float = 0.0
+
+    def proj_mat(self) -> np.ndarray:
+        """3x4 projection matrix P = K @ E[:3]."""
+        return (self.intrinsics @ self.extrinsics[:3, :4]).astype(np.float32)
+
+    def scaled(self, scale_x: float, scale_y: float) -> "Camera":
+        k = self.intrinsics.copy()
+        k[0, :] *= scale_x
+        k[1, :] *= scale_y
+        return dataclasses.replace(self, intrinsics=k)
 
 
 def read_cam_file(filename, interval_scale: float = 1.0, ndepths: int | None = None):
@@ -88,3 +112,16 @@ def stage_proj_matrices(proj: np.ndarray, num_stages: int = 3):
         p[..., 1, :2, :] = proj[..., 1, :2, :] * (2.0 ** (s - 1))
         out[f"stage{s}"] = p.astype(np.float32)
     return out
+
+
+def fuse_proj(proj_2x4x4: np.ndarray) -> np.ndarray:
+    """Fuse (.., 2, 4, 4) [extrinsics, K-padded] into a single (.., 4, 4)
+    matrix M with M[:3,:4] = K @ E[:3,:4], M[3] = E[3] (the torch
+    counterpart on the model's path is
+    model/cascade.py::fuse_projection_matrices)."""
+    proj = np.asarray(proj_2x4x4)
+    ext = proj[..., 0, :, :]
+    k = proj[..., 1, :3, :3]
+    out = ext.copy()
+    out[..., :3, :4] = k @ ext[..., :3, :4]
+    return out.astype(np.float32)

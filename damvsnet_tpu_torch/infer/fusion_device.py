@@ -62,14 +62,13 @@ def camera_terms(intr_ref, ext_ref, intr_src, ext_src):
             matmul_fp32(ext_ref, inv(ext_src)))
 
 
-def consistency_masks(depth_ref, intr_ref, depth_src, intr_src, terms,
-                      dist_base, rel_diff_base, dyn_lo: int = 2, dyn_hi: int = 11):
+def reprojection_errors(depth_ref, intr_ref, depth_src, intr_src, terms):
     """The round trip of a reference against V sources, fp32 tensors on one
     device: depth_ref [H, W], intr_ref [3, 3], depth_src [V, H, W],
     intr_src [V, 3, 3], ``terms`` = ``camera_terms`` on that device.
-    Returns (masks [V, T, H, W] for the thresholds dyn_lo..dyn_hi-1, final
-    mask [V, H, W] (the last threshold), reprojected depth [V, H, W], zero
-    where the final mask fails)."""
+    Returns (dist, rel_diff, depth_reproj), each [V, H, W]: how far the
+    reference pixel lands from itself, in pixels; |reprojected - reference
+    depth| / reference depth; the reprojected depth."""
     inv_k_ref, inv_k_src, rel, rel_back = terms
     v, h, w = depth_src.shape
     dev = depth_ref.device
@@ -96,7 +95,18 @@ def consistency_masks(depth_ref, intr_ref, depth_src, intr_src, terms,
 
     dist = torch.sqrt((x_re - xs) ** 2 + (y_re - ys) ** 2)
     rel_diff = (depth_reproj - depth_ref).abs() / depth_ref
+    return dist, rel_diff, depth_reproj
 
+
+def consistency_masks(depth_ref, intr_ref, depth_src, intr_src, terms,
+                      dist_base, rel_diff_base, dyn_lo: int = 2, dyn_hi: int = 11):
+    """The votes of a reference against V sources (``reprojection_errors``'
+    arguments). Returns (masks [V, T, H, W] for the thresholds
+    dyn_lo..dyn_hi-1, final mask [V, H, W] (the last threshold), reprojected
+    depth [V, H, W], zero where the final mask fails)."""
+    dist, rel_diff, depth_reproj = reprojection_errors(depth_ref, intr_ref, depth_src,
+                                                       intr_src, terms)
+    dev = depth_ref.device
     thresholds = torch.arange(dyn_lo, dyn_hi, dtype=torch.float32, device=dev)[:, None, None]
     masks = ((dist[:, None] < thresholds * dist_base)
              & (rel_diff[:, None] < thresholds * rel_diff_base))

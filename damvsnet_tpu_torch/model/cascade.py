@@ -101,6 +101,7 @@ from ..nn.geofusion import GeoFeatureFusion
 from ..nn.georeg import GeoRegNet2d
 from ..nn.refine import RefineNet
 from ..ops.costvol import build_cost_volume, variance_cost_volume
+from ..ops.kernels._common import SUPPORTED_CHANNELS
 from ..ops.kernels.fused_costvol import (fused_adaptive_cost_volume,
                                          fused_adaptive_cost_volume_plain)
 from ..ops.kernels.probstats import prob_volume_stats_fused
@@ -152,7 +153,10 @@ class CascadeMVSNet(nn.Module):
     keeps its gradient). reg_mode: "costreg" (the 3-D U-Net) or "georeg"
     (GeoRegNet2d; ndepths must halve, then quarter: 64/32/8). refine: the
     RefineNet head. arch_mode: FeatureNet's "fpn" or "unet". share_cr
-    raises (see the module's docstring). fmt_sp_group: a process group
+    raises (see the module's docstring). base_channels: FeatureNet's base
+    width; 8, the only one the kernels' channel widths take, and anything
+    else raises. depth_intervals_ratio: stored as the JAX package stores it
+    (from ``--depth_inter_r``); neither forward reads it. fmt_sp_group: a process group
     over which the FMT's attention runs sequence-parallel where its size
     (more than 1) divides the tokens (JAX's ``fmt_sp_axis``); every rank of
     it runs the same request. slab_group: a process group over whose ranks
@@ -180,8 +184,15 @@ class CascadeMVSNet(nn.Module):
                  share_cr: bool = False, grad_method: str = "detach",
                  reg_mode: str = "costreg", refine: bool = False,
                  arch_mode: str = "fpn", fmt_sp_group=None, slab_group=None,
-                 slab_stats_group=None):
+                 slab_stats_group=None, base_channels: int = 8,
+                 depth_intervals_ratio: Sequence[float] = (4, 2, 1)):
         super().__init__()
+        if base_channels != 8:
+            raise ValueError(
+                f"base_channels={base_channels}: the stages' features are 4x, 2x and 1x "
+                "base_channels wide and the CUDA kernels take C in "
+                f"{SUPPORTED_CHANNELS}, so only 8 builds; the JAX package's model fails "
+                "with any other under geo fusion too (a broadcast shape error)")
         if len(ndepths) != 3 or len(cr_base_chs) != 3:
             raise ValueError(f"the cascade has 3 stages, got ndepths={ndepths}, "
                              f"cr_base_chs={cr_base_chs}")
@@ -210,6 +221,7 @@ class CascadeMVSNet(nn.Module):
             if bad:
                 raise ValueError(f"slab_group of {size} ranks: ndepths {tuple(ndepths)} has "
                                  f"D={bad} that does not cut into {size} slabs of equal depth")
+        self.depth_intervals_ratio = tuple(depth_intervals_ratio)  # stored, never read
         self.slab_group = slab_group
         self.slab_stats_group = slab.stats_group(slab_group, slab_stats_group)
         self.ndepths = tuple(ndepths)

@@ -20,6 +20,11 @@ def _per_pixel(depth_values: torch.Tensor) -> torch.Tensor:
     return depth_values if depth_values.dim() == 4 else depth_values[:, :, None, None]
 
 
+def depth_regression(p: torch.Tensor, depth_values: torch.Tensor) -> torch.Tensor:
+    """Soft-argmin: p [B, D, H, W]; depth_values [B, D] or [B, D, H, W]."""
+    return torch.sum(p * _per_pixel(depth_values), dim=1)
+
+
 def photometric_confidence(prob_volume: torch.Tensor) -> torch.Tensor:
     """4-tap window sum gathered at the soft argmax index, as a masked sum.
     No gradient: the input is detached, as in the reference."""
@@ -41,7 +46,7 @@ def prob_volume_stats(prob_volume_pre: torch.Tensor, depth_values: torch.Tensor)
     and prob_volume [B, D, H, W]), fp32."""
     prob_volume = torch.softmax(prob_volume_pre.float(), dim=1)
     dv = _per_pixel(depth_values)
-    depth = torch.sum(prob_volume * dv, dim=1)
+    depth = depth_regression(prob_volume, dv)
     conf = photometric_confidence(prob_volume)
     samp_var = (dv - depth[:, None]) ** 2
     sigma3 = 3.0 * torch.sqrt(torch.sum(samp_var * prob_volume, dim=1))

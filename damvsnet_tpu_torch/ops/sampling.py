@@ -13,6 +13,10 @@
      zscore_i = 3 * (low + step*i) / (sigma + eps)
      offset   = softmax_D(zscore)           (adaptive interval reweighting)
      sample_i = base_i + offset_i * step
+
+CasMVSNet's fixed-interval band (``get_cur_depth_range_samples``) and its
+dispatcher (``get_depth_range_samples``) are library functions here, as in
+the JAX package: no path of either package calls them.
 """
 from __future__ import annotations
 
@@ -58,3 +62,25 @@ def uncertainty_aware_samples(cur_depth: torch.Tensor, sigma: torch.Tensor | Non
     if sigma is None:
         raise ValueError("ADIA sampling needs the previous stage's sigma")
     return adaptive_depth_samples(cur_depth, sigma, ndepth)
+
+
+def get_cur_depth_range_samples(cur_depth: torch.Tensor, ndepth: int,
+                                depth_interval_pixel) -> torch.Tensor:
+    """CasMVSNet's fixed-interval sampler for stages >= 2: a uniform band of
+    ndepth * interval centered on the previous depth. cur_depth [B, H, W]
+    (the interval a scalar or [B, H, W]) -> [B, D, H, W]."""
+    lo = cur_depth - ndepth / 2 * depth_interval_pixel
+    hi = cur_depth + ndepth / 2 * depth_interval_pixel
+    new_interval = (hi - lo) / (ndepth - 1)
+    i = torch.arange(ndepth, dtype=cur_depth.dtype,
+                     device=cur_depth.device).reshape(1, ndepth, 1, 1)
+    return lo[:, None] + i * new_interval[:, None]
+
+
+def get_depth_range_samples(cur_depth: torch.Tensor, ndepth: int, depth_interval_pixel,
+                            height: int, width: int) -> torch.Tensor:
+    """Dispatch: [B, D0] -> the uniform sweep; [B, H, W] -> the
+    fixed-interval band."""
+    if cur_depth.dim() == 2:
+        return uniform_depth_samples(cur_depth, ndepth, height, width)
+    return get_cur_depth_range_samples(cur_depth, ndepth, depth_interval_pixel)

@@ -23,16 +23,26 @@ WARMUP_ITERS = 500
 WARMUP_FACTOR = 1.0 / 3
 
 
-def warmup_multistep_factor(milestones_iters, gamma: float):
+def warmup_multistep_factor(milestones_iters, gamma: float, warmup_iters: int = WARMUP_ITERS,
+                            warmup_factor: float = WARMUP_FACTOR):
     """step -> multiplier of the base lr."""
     milestones_iters = sorted(milestones_iters)
 
     def factor(step: int) -> float:
-        alpha = min(step / WARMUP_ITERS, 1.0)
-        warmup = WARMUP_FACTOR * (1.0 - alpha) + alpha
+        alpha = min(max(step / max(warmup_iters, 1), 0.0), 1.0)
+        warmup = warmup_factor * (1.0 - alpha) + alpha
         return warmup * gamma ** sum(step >= m for m in milestones_iters)
 
     return factor
+
+
+def warmup_multistep_schedule(base_lr: float, milestones_iters, gamma: float,
+                              warmup_iters: int = WARMUP_ITERS,
+                              warmup_factor: float = WARMUP_FACTOR):
+    """step -> lr, the JAX package's schedule function (the optimizer here
+    takes the factor under ``LambdaLR``)."""
+    factor = warmup_multistep_factor(milestones_iters, gamma, warmup_iters, warmup_factor)
+    return lambda step: base_lr * factor(step)
 
 
 def make_optimizer(params, base_lr: float, lrepochs: str, iters_per_epoch: int,

@@ -7,7 +7,8 @@ Each tree (a checkout of the repository; default the one this script is
 in) runs in a process of its own, in the order given, so listing a parent
 tree around this one (parent / this / this / parent) compares two commits
 on the same card. The kernels are built in each tree first. Phases: 5 (the
-adaptive serving cascade), 7 (the fused training step), 14 (FMT serving),
+adaptive serving cascade), 7 (the fused training step), 13 (the test CLI
+on a synthetic DTU-layout scene), 14 (FMT serving),
 15 (FMT training, undetached), 16 (GeoReg / refine / U-Net serving), and
 the ranks' phases, each two processes of chip_smoke.py on the card: 17
 (data-parallel fused training), 18 (the training CLI on 2 ranks), 19 (the
@@ -16,7 +17,8 @@ runs phase 14 first when the list has not, for its bf16 limit), and the
 depth-slab axis: 21 (slab serving on 2 ranks), 22 (slab training: the
 fused step on 2 ranks and on the 2x2 mesh, the non-fused step on 2 ranks;
 its one-process peak is phase 10's, not measured here), 23 (the training
-CLI on the 2x2 mesh, then a 1-rank resume). Each
+CLI on the 2x2 mesh, then a 1-rank resume), and 24 (the Tanks-and-Temples
+recipe, scripts/test_tnt_torch.sh, at 1920x1056 with 11 views). Each
 prints its chip_smoke.py lines, prefixed with the tree, and fails as the
 smoke does.
 """
@@ -53,6 +55,8 @@ for phase in sys.argv[1:]:
         del model
     elif phase == "7":
         c.phase_train(dev)
+    elif phase == "13":
+        c.phase_test_cli(dev)
     elif phase == "14":
         fmt = c.phase_fmt_serving(sample, dev)[2]
     elif phase == "15":
@@ -77,6 +81,8 @@ for phase in sys.argv[1:]:
         c.phase_slab_train(dev, smi, workdir.name)
     elif phase == "23":
         c.phase_slab_cli(smi, workdir.name)
+    elif phase == "24":
+        c.phase_tnt_recipe(dev)
     torch.cuda.empty_cache()
 workdir.cleanup()
 """
@@ -85,8 +91,8 @@ workdir.cleanup()
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("phases", nargs="+",
-                    choices=["5", "7", "14", "15", "16", "17", "18", "19", "20", "21",
-                             "22", "23"])
+                    choices=["5", "7", "13", "14", "15", "16", "17", "18", "19", "20", "21",
+                             "22", "23", "24"])
     ap.add_argument("--trees", nargs="+", default=[REPO])
     args = ap.parse_args()
     for tree in args.trees:

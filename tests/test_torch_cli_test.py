@@ -19,6 +19,7 @@ import torch
 
 import jax.numpy as jnp
 
+from damvsnet_tpu.cli import test as jax_cli_test
 from damvsnet_tpu.data.general_eval import GeneralEvalDataset as JEvalDataset
 from damvsnet_tpu.data.synthetic import export_synthetic_scene
 from damvsnet_tpu.infer.fusion_dypcd import dypcd_filter as jdypcd
@@ -30,7 +31,7 @@ from damvsnet_tpu_torch.core.pfm import read_pfm
 from damvsnet_tpu_torch.core.ply import read_ply
 from damvsnet_tpu_torch.nn.fmt import FMTWithPathway
 from damvsnet_tpu_torch.utils.weights import module_table
-from torch_helpers import checkpoint_trees, port_flax_flat
+from torch_helpers import checkpoint_trees, jax_flags_parse_alike, port_flax_flat
 
 torch.set_num_threads(1)
 pytest.importorskip("cv2")
@@ -187,3 +188,12 @@ def test_orbax_checkpoint_raises_naming_the_converter(runs, tmp_path):
     args[args.index("--loadckpt") + 1] = str(tmp_path)
     with pytest.raises(ValueError, match="scripts/export_bench_weights.py"):
         cli_test.main(args)
+
+
+def test_every_jax_flag_parses_alike():
+    """Every flag of the JAX test CLI is a flag of the port's with the same
+    choices, default and type, and each value parses to the same namespace
+    (``--grad_method`` and ``--agg_mode`` free-form in both: the model
+    raises on a value it lacks)."""
+    jax_flags_parse_alike(jax_cli_test.build_parser(), cli_test.build_parser(),
+                          required=("--testpath", "p", "--testlist", "l"))

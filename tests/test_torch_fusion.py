@@ -178,3 +178,42 @@ def test_native_matches_numpy_and_builds_outside_native(rng):
     from scipy.spatial import cKDTree
     assert cKDTree(kept).query(kept, k=2)[0][:, 1].min() >= 0.5 - 1e-5
     assert (os.stat(committed).st_mtime_ns, open(committed, "rb").read()) == before
+
+
+def test_card_vs_cpu_fusion_check_refuses_a_planted_vote_error(synthetic_scene):  # noqa: F811
+    """chip_smoke.py's ``fusion_errors`` (phases 13 and 24) with the device
+    under test on the CPU, on the plane scene with four sources (views 1
+    and 2 twice) under seeded depth noise of about the vote thresholds.
+    The same fusion passes with nothing excused. A planted source-vote
+    error, the relative-depth threshold 10 % wider, flips votes far from any
+    threshold: it is refused at FUSION_MARGIN_ULPS and excused only when
+    the margin is widened to cover it."""
+    import chip_smoke
+    views = _views(synthetic_scene)
+    rs = np.random.default_rng(5)
+
+    def noisy(depth):
+        return (depth * (1 + 0.0025 * rs.standard_normal(depth.shape))).astype(np.float32)
+    srcs = [views[1], views[2], views[1], views[2]]
+    args = (noisy(views[0][0]), views[0][1], views[0][2],
+            np.stack([noisy(d) for d, _, _ in srcs]),
+            np.stack([k for _, k, _ in srcs]), np.stack([e for _, _, e in srcs]))
+    dist_base, rel_diff_base, _ = chip_smoke.fusion_thresholds()
+    want = fusion_device.fuse_reference_view(*args, device="cpu")
+    cpu_votes = chip_smoke.source_votes(args, "cpu")
+    differ, d_rel, excused = chip_smoke.fusion_errors(args, want, want, lambda: cpu_votes)
+    assert not differ.any() and d_rel.max() == 0 and excused == 0
+
+    wider = 1.1 * rel_diff_base
+    got = fusion_device.fuse_reference_view(*args, rel_diff_base=wider, device="cpu")
+    terms = fusion_device.camera_terms(*args[1:3], *args[4:6])
+    t = [torch.as_tensor(np.ascontiguousarray(a, np.float32)) for a in
+         (args[0], args[1], args[3], args[4])]
+    got_votes = fusion_device.consistency_masks(*t, terms, dist_base, wider)[1].numpy()
+    both_flipped = (got[0] & want[0] & (got_votes != cpu_votes).any(0)).sum()
+    assert both_flipped > 0
+    differ, d_rel, excused = chip_smoke.fusion_errors(args, got, want, lambda: got_votes)
+    assert d_rel.max() > chip_smoke.FUSION_DEPTH_RTOL and excused == 0
+    differ, d_rel, excused = chip_smoke.fusion_errors(args, got, want, lambda: got_votes,
+                                                      margin_ulps=1e5)
+    assert d_rel.max() <= chip_smoke.FUSION_DEPTH_RTOL and excused == both_flipped

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor anything of the JAX
 package, and its entry points never carry on quietly on the CPU."""
 import ast
+import importlib
 import os
 import subprocess
 import sys
@@ -26,6 +27,29 @@ REPO = PKG.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "damvsnet_tpu")
 # what drives the port on the card: it stands alone as the package does
 SCRIPTS = (REPO / "chip_smoke.py", *sorted((REPO / "scripts").glob("*torch*.py")))
+JAX_PKG = REPO / "damvsnet_tpu"
+# The JAX package's public names the port does not have, each with its
+# reason; every name a JAX ``__init__`` exports resolves in the port or
+# stands here.
+NOT_TO_PORT = {
+    "conv_transpose_torch": "JAX's emulation of torch's transposed convolution: the port's "
+                            "blocks use nn.ConvTranspose* itself",
+    "create_train_state": "TrainState(model, optimizer, scheduler) builds the port's state",
+    "save_checkpoint": "Checkpointer saves the port's checkpoints",
+    "wait_for_saves": "Checkpointer.wait; there is no orbax save manager",
+    "MeshAxes": "GSPMD's named mesh axes; the port passes its process groups (Mesh)",
+    "batch_sharding": "GSPMD: a rank takes its rows of the batch (batch_rows)",
+    "replicate_sharding": "GSPMD: parameters are replicated by DDP",
+    "shard_batch": "GSPMD: a rank takes its rows of the batch (batch_rows)",
+    "active_mesh": "GSPMD's ambient mesh; the port passes its groups explicitly",
+    "mesh_axis_size": "GSPMD's ambient mesh; dist.get_world_size(group)",
+    "compute_dtype_scope": "nn/precision.py's trace-time scope; the model's compute_dtype",
+    "pallas_sampler_supported": "the TPU sampler's test; the CUDA kernels gather every tap",
+    "prob_volume_stats_pallas": "the TPU kernel K2's entry; its Hopper kernel is "
+                                "ops.kernels.probstats.prob_volume_stats_fused",
+}
+# a JAX subpackage whose counterpart the port names otherwise
+PORT_SUBPACKAGE = {"ops.pallas": "ops.kernels"}
 
 
 def _modules():
@@ -140,3 +164,45 @@ def test_entry_points_raise_without_cuda(monkeypatch, entry, tmp_path):
             fuse_reference_view(z[0], np.eye(3), np.eye(4), z, np.eye(3)[None], np.eye(4)[None])
         else:
             CascadeMVSNet(ndepths=(8, 8, 8), agg_mode="variance")
+
+
+def _jax_exports():
+    """(subpackage, name) of every name a JAX ``__init__`` imports from its
+    modules, read from the source (no JAX import)."""
+    for init in sorted(JAX_PKG.rglob("__init__.py")):
+        sub = ".".join(init.parent.relative_to(JAX_PKG).parts)
+        for node in ast.parse(init.read_text()).body:
+            if isinstance(node, ast.ImportFrom) and node.level == 1:
+                yield from ((sub, a.asname or a.name) for a in node.names)
+
+
+def _jax_top_level_names():
+    names = set()
+    for path in JAX_PKG.rglob("*.py"):
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+                names.add(node.name)
+            elif isinstance(node, (ast.Import, ast.ImportFrom)):
+                names.update(a.asname or a.name for a in node.names)
+            elif isinstance(node, ast.Assign):
+                names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+    return names
+
+
+def test_every_jax_export_resolves_in_the_port_or_has_its_reason():
+    """Each name of a JAX ``__init__`` is an attribute of the port's
+    counterpart package, or is on NOT_TO_PORT; each entry of NOT_TO_PORT is
+    a top-level name of the JAX package that the port's packages lack."""
+    exports = list(_jax_exports())
+    assert len(exports) > 80
+    missing = []
+    for sub, name in exports:
+        pkg = importlib.import_module(".".join(
+            ["damvsnet_tpu_torch", PORT_SUBPACKAGE.get(sub, sub)]).rstrip("."))
+        if not hasattr(pkg, name) and name not in NOT_TO_PORT:
+            missing.append(f"{sub}: {name}")
+    assert not missing
+    jax_names = _jax_top_level_names()
+    assert set(NOT_TO_PORT) <= jax_names
+    port_names = {n for _, m in _modules() for n in dir(importlib.import_module(m))}
+    assert not set(NOT_TO_PORT) & port_names

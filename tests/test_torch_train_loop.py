@@ -20,6 +20,7 @@ from damvsnet_tpu_torch.train.schedule import make_optimizer
 from damvsnet_tpu_torch.train.state import (Checkpointer, TrainState, latest_checkpoint,
                                             restore_checkpoint)
 from test_data import fake_dtu  # noqa: F401  (the JAX data tests' DTU tree)
+from torch_helpers import jax_flags_parse_alike
 
 torch.set_num_threads(1)
 
@@ -209,15 +210,77 @@ def test_cli_share_cr_raises_as_jax_does(tiny_synthetic, tmp_path):
         cli_train.main(_CLI + ["--epochs", "1", "--logdir", str(tmp_path), "--share_cr"])
 
 
-def test_cli_defaults_follow_the_jax_cli():
+@pytest.mark.parametrize("case", ["defaults", "every_jax_flag"])
+def test_cli_defaults_follow_the_jax_cli(case):
     """Every flag both CLIs take has the same default (the dataset
-    ``dtu_yao`` and no ``--fused_train`` among them)."""
+    ``dtu_yao`` and no ``--fused_train`` among them); and every flag of the
+    JAX CLI parses in the port's, with its choices and default (``--mode
+    test|profile``, ``--cache_dir``, ``--debug_nans`` among them)."""
+    if case == "every_jax_flag":
+        jax_flags_parse_alike(jax_cli_train.build_parser(), cli_train.build_parser())
+        return
     ours = vars(cli_train.build_parser().parse_args([]))
     theirs = vars(jax_cli_train.build_parser().parse_args([]))
     shared = set(ours) & set(theirs)
     assert {"dataset", "fused_train", "agg_mode", "ndepths", "numdepth"} <= shared
     assert {k: ours[k] for k in shared} == {k: theirs[k] for k in shared}
     assert ours["dataset"] == "dtu_yao" and ours["fused_train"] is False
+
+
+@pytest.mark.parametrize("mode", ["test", "profile"])
+def test_cli_mode_is_never_read(tiny_synthetic, tmp_path, mode):
+    """``--mode test`` and ``--mode profile`` train as ``--mode train``
+    does, as in the JAX CLI, which never reads the flag: the same steps to
+    the same parameters."""
+    runs = {}
+    for m in ("train", mode):
+        trainer = cli_train.main(_CLI + ["--epochs", "1", "--logdir", str(tmp_path / m),
+                                         "--mode", m])
+        assert trainer.state.step == 2
+        runs[m] = trainer.state.model.state_dict()
+    for k, v in runs["train"].items():
+        assert torch.equal(runs[mode][k], v), k
+
+
+class _NaNBackward(torch.autograd.Function):
+    """The identity, whose backward returns NaN."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.full_like(g, float("nan"))
+
+
+@pytest.mark.parametrize("debug_nans", [False, True])
+def test_cli_debug_nans_raises_on_a_nan_backward(monkeypatch, tmp_path, debug_nans):
+    """A NaN planted in the loss's backward, in an epoch of one step: with
+    ``--debug_nans`` (anomaly detection) the step raises, naming the
+    function that returned it; without it the same step runs through and
+    its NaN gradients reach the parameters."""
+    from damvsnet_tpu_torch.train import loop
+
+    monkeypatch.setitem(port_data._REGISTRY, "synthetic",
+                        functools.partial(SyntheticDataset, height=32, width=32, length=2))
+
+    real = loop.cas_mvsnet_loss
+
+    def planted(*args, **kwargs):
+        total, depth_loss, cpc = real(*args, **kwargs)
+        return _NaNBackward.apply(total), depth_loss, cpc
+    monkeypatch.setattr(loop, "cas_mvsnet_loss", planted)
+    argv = _CLI + ["--epochs", "1", "--logdir", str(tmp_path)]
+    if not debug_nans:
+        trainer = cli_train.main(argv)
+        assert trainer.state.step == 1
+        assert any(p.isnan().any() for p in trainer.state.model.parameters())
+        assert not torch.is_anomaly_enabled()
+        return
+    with pytest.raises(RuntimeError, match="_NaNBackwardBackward.* returned nan"):
+        cli_train.main(argv + ["--debug_nans"])
+    assert not torch.is_anomaly_enabled()
 
 
 @pytest.mark.parametrize("flags", [

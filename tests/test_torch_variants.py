@@ -17,9 +17,12 @@ held as tests/test_torch_cascade.py holds the serving cascade: per stage,
 depth, confidence, the 3-sigma band, the probability volume and the
 hypotheses at 1e-4, and the refined depth.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +33,8 @@ from damvsnet_tpu.nn.blocks import Hourglass3d as JHourglass
 from damvsnet_tpu.nn.costreg import Reg2d as JReg2d
 from damvsnet_tpu.nn.feature import FeatureNet as JFeatureNet
 from damvsnet_tpu.nn.georeg import GeoRegNet2d as JGeoReg
+from damvsnet_tpu.nn.precision import compute_dtype as jax_compute_dtype
+from damvsnet_tpu.ops.resize import resize_bilinear as jresize_bilinear
 from damvsnet_tpu.nn.refine import RefineNet as JRefine
 from damvsnet_tpu_torch.model import CascadeMVSNet
 from damvsnet_tpu_torch.nn.aggweight import AggWeightNetVolume2
@@ -38,6 +43,7 @@ from damvsnet_tpu_torch.nn.costreg import Reg2d
 from damvsnet_tpu_torch.nn.feature import FeatureNet
 from damvsnet_tpu_torch.nn.georeg import GeoRegNet2d
 from damvsnet_tpu_torch.nn.refine import RefineNet
+from damvsnet_tpu_torch.ops.resize import resize_bilinear
 from damvsnet_tpu_torch.utils.weights import _table as weight_table
 from damvsnet_tpu_torch.utils.weights import (module_state_dict_from_flax, module_table,
                                               state_dict_from_flax)
@@ -142,6 +148,62 @@ def test_georeg(rng, mode, stage_idx, encoding):
     port_args = (_ncdhw(x), stage_idx, None if pv is None else torch.from_numpy(pv))
     _held(mode, JGeoReg(convolutional_layer_encoding=encoding), jargs,
           GeoRegNet2d(c, encoding), port_args, lambda y: y.numpy(), "georeg")
+
+
+# bf16: the two packages' convolutions round their bf16 outputs after sums
+# in other orders; two bf16 steps (2^-6 relative) of the output's largest
+BF16_MODULE_TOL = 2.0 ** -6
+
+
+@pytest.mark.parametrize("upsample", ["F.interpolate", "resize_bilinear"])
+@pytest.mark.parametrize("stage_idx", [1, 2])
+def test_georeg_stage_bf16_against_jax(stage_idx, upsample):
+    """A GeoReg stage in bf16 as the cascades run it: the previous stage's
+    fp32 probability volume upsampled x2 (the port by ``F.interpolate`` as
+    model/cascade.py does, or by ops/resize.py's ``resize_bilinear``; JAX by
+    its separable resize), then GeoRegNet2d on a bf16 cost volume. The
+    upsampled volumes differ by an fp32 ulp on about a third of their
+    entries (torch sums the four taps in another order); the bf16 outputs
+    are the same for both of the port's upsamples and within two bf16 steps
+    of JAX's. Prints the differences."""
+    rs = np.random.default_rng(stage_idx)
+    d, h, w, c = (8, 4)[stage_idx - 1], 32, 32, (16, 8)[stage_idx - 1]
+    d_prev = d * (2 if stage_idx == 1 else 4)
+    torch.manual_seed(0)
+    port = GeoRegNet2d(c, "z")
+    flat = port_flax_flat(port, module_table("georeg"))
+    port.load_state_dict(module_state_dict_from_flax(flat, "georeg"), strict=True)
+    port.eval()
+    x = np.asarray(jnp.asarray(rs.standard_normal((1, d, h, w, c)), jnp.bfloat16), np.float32)
+    logits = 3.0 * rs.standard_normal((1, d_prev, h // 2, w // 2))
+    pv = (np.exp(logits) / np.exp(logits).sum(1, keepdims=True)).astype(np.float32)
+    want_up = np.moveaxis(np.asarray(jresize_bilinear(jnp.moveaxis(jnp.asarray(pv), 1, -1),
+                                                      (h, w))), -1, 1)
+    with jax_compute_dtype(jnp.bfloat16):
+        want = np.asarray(jax.jit(lambda v, a, p: JGeoReg().apply(v, a, stage_idx, p))(
+            unflat(flat), jnp.asarray(x, jnp.bfloat16), jnp.asarray(want_up)), np.float32)
+    ups = {"F.interpolate": lambda t: F.interpolate(t, size=(h, w), mode="bilinear",
+                                                    align_corners=False),
+           "resize_bilinear": lambda t: resize_bilinear(t.permute(0, 2, 3, 1),
+                                                        (h, w)).permute(0, 3, 1, 2)}
+    xt = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 4, 1, 2, 3))).bfloat16()
+    got, got_up = {}, {}
+    with torch.no_grad():
+        for name, up in ups.items():
+            got_up[name] = up(torch.from_numpy(pv))
+            got[name] = port(xt, stage_idx, got_up[name]).float().numpy()
+    up_diff = np.abs(got_up[upsample].numpy() - want_up)
+    out_diff = np.abs(got[upsample] - want)
+    print("GeoReg stage bf16 vs JAX", json.dumps({
+        "stage_idx": stage_idx, "upsample": upsample,
+        "upsampled_max_abs": float(up_diff.max()),
+        "upsampled_differ_share": float((up_diff > 0).mean()),
+        "out_max_abs": float(out_diff.max()), "out_mean_abs": float(out_diff.mean()),
+        "out_scale": float(np.abs(want).max())}))
+    assert up_diff.max() <= 2.0 ** -23
+    np.testing.assert_array_equal(got["F.interpolate"], got["resize_bilinear"])
+    np.testing.assert_allclose(got[upsample], want, rtol=0,
+                               atol=BF16_MODULE_TOL * max(1.0, float(np.abs(want).max())))
 
 
 @pytest.mark.parametrize("mode", MODES)

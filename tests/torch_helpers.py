@@ -47,6 +47,36 @@ def port_named(params, batch_stats, agg_mode="adaptive", **config):
     return {k: v.numpy() for k, v in state_dict_from_flax(flat, agg_mode, **table).items()}
 
 
+def _flag_values(action):
+    """Argument lists that exercise one flag of a parser: each choice, the
+    flag alone for a switch, else one value of its type."""
+    if action.choices:
+        return [[action.option_strings[0], c] for c in action.choices]
+    if action.nargs == 0:
+        return [[action.option_strings[0]]]
+    value = {int: "3", float: "0.5"}.get(action.type, "x")
+    return [[action.option_strings[0], value]]
+
+
+def jax_flags_parse_alike(jax_parser, port_parser, required=()):
+    """Every flag of the JAX parser is a flag of the port's with the same
+    dest, default, choices, type and arity, and each of its values (see
+    ``_flag_values``) parses in both to the same namespace on the JAX
+    parser's keys. ``required``: the arguments both parsers require."""
+    port_actions = {a.dest: a for a in port_parser._actions if a.option_strings}
+    jax_actions = [a for a in jax_parser._actions if a.option_strings and a.dest != "help"]
+    assert len(jax_actions) > 20
+    for a in jax_actions:
+        ours = port_actions.get(a.dest)
+        assert ours is not None, f"{a.option_strings} is not a flag of the port's CLI"
+        for attr in ("option_strings", "default", "choices", "type", "nargs", "const"):
+            assert getattr(ours, attr) == getattr(a, attr), f"{a.dest}: {attr}"
+        for argv in _flag_values(a):
+            want = vars(jax_parser.parse_args(list(required) + argv))
+            got = vars(port_parser.parse_args(list(required) + argv))
+            assert {k: got[k] for k in want} == want, argv
+
+
 def cascade_batch(seed, batch=1, num_views=3, height=32, width=32, ndepth=16):
     """A serving batch of numpy arrays for the tiny cascade (``make_rig``'s
     rig, per-stage intrinsics, random images, a uniform [4, 8] sweep)."""
