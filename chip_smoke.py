@@ -14,6 +14,9 @@ without printing its result line:
      (kernel_ms), with torch.profiler; then at a small shape with 17
      source views (two launches, 8 + 9 views, summed) against the plain
      version, forward and, through autograd (K3), the features' gradients;
+     each stage's shapes also with the grid un-normalized
+     ``align_corners=True`` (the accuracy chain's), against the plain
+     version in both dtypes, untimed;
   4. K2, the probability-volume statistics, likewise, on an fp32 cost and
      on a bf16 cost (the bf16 cascade hands K2 the regularizer's bf16
      output, which the kernel reads as it is);
@@ -26,7 +29,8 @@ without printing its result line:
      at each stage's full-width training shape (B=4, 512x640, N=5), fp32
      (TF32 off) and bf16, on the scenes' FeatureNet maps, the trained
      weight net and a seeded cotangent; K1 is timed at the same shapes
-     (both also device time alone);
+     (both also device time alone); each stage also with
+     ``align_corners=True``, untimed;
   7. the training step (512x640, B=4, N=5, D0=192, ndepths 64/32/8, bf16,
      the trained weights, Adam under the warmup schedule, CPC on): 1 warm
      step, then 3 timed steps through make_train_step with every launch
@@ -178,6 +182,18 @@ through the host: their times record the paths, not a scaling.
      TNT_FP32_TOL with TF32 off) and the device fusion on the card against
      the CPU at phase 13's limits (all 11 references on the card, the
      first TNT_CPU_REFS on the CPU too).
+ 25. the accuracy chain: scripts/e2e_synthetic_torch.py's ``main`` in this
+     process at its headline configuration (CHAIN_ARGV: 128x160, N=5, d0
+     48, ndepths 32/16/8, B=2, lr 1e-3, align_corners, fp32) for 2 epochs
+     of 128 steps (where PIL or cv2 does not import, the script swaps in
+     its numpy codec and skips dypcd): training from scratch (the
+     non-fused step), the weights-only restore into a model of another
+     seed, the held-out scene served through DepthRunner, the device
+     consistency filter and the DTU protocol, with every launch counter
+     set to 0 just before and read just after (K1 and K2 3 times a view,
+     K3 and K4 never: non-fused training launches no kernel); the second
+     epoch's mean loss at most CHAIN_LOSS_DROP of the first's, the restore
+     bitwise, the depth finite, the cloud not empty.
 
 ``share_cr`` builds in neither package (one regularizer cannot take the
 stages' three widths), so no phase runs it.
@@ -239,6 +255,13 @@ FUSION_MASK_SHARE, FUSION_DEPTH_RTOL, FUSION_MARGIN_ULPS = 1e-3, 1e-5, 4
 # references only (the card fuses all of them): the CPU's votes take
 # about 3.6 s a reference at 1920x1056 with 10 sources
 TNT_CPU_REFS = 2
+# phase 25: scripts/e2e_synthetic_torch.py at its headline configuration
+# (the JAX chain's ACCURACY_r05_quirkoff.json) for 2 of its 16 epochs, 128
+# steps each; the second epoch's mean loss must fall to this share of the
+# first's at most (the JAX chain's record: 0.469 -> 0.076)
+CHAIN_ARGV = ["--align_corners", "--d0", "48", "--ndepths", "32,16,8", "--batch_size", "2",
+              "--lr", "1e-3", "--conf", "0.1,0.15,0.5", "--epochs", "2"]
+CHAIN_LOSS_DROP = 0.3
 CONF_ROUNDING = 1e-5  # a confidence may pass 1 by fp32 rounding of its sum
 # K1 runs on the scene's FeatureNet maps with the trained weights.
 # Tolerance on (kernel - plain) / (1 + |plain|), elementwise. fp32: both
@@ -496,25 +519,30 @@ def phase_k1(sample, model, dev):
         ref_p, src_p = stage_geometry(sample, stage_idx + 1, dev)
         dv = sweep(sample, stage_idx, dev, gen)
         wts = fold_aggweight(model.DepthNet.weight_net[stage_idx])
-        for tag in ("fp32", "bf16"):
+        # the serving convention timed; align_corners=True (the accuracy
+        # chain's) held against the plain version on the same inputs
+        for tag, ac in (("fp32", False), ("bf16", False), ("fp32", True), ("bf16", True)):
             feas = feats[tag][stage_idx]
-            args = (feas[0], list(feas[1:]), ref_p, src_p, dv, *wts)
+            args = (feas[0], list(feas[1:]), ref_p, src_p, dv, *wts, ac)
             got = K.fused_adaptive_cost_volume(*args)
             torch.cuda.synchronize()
             want = K.fused_adaptive_cost_volume_plain(*args)
             diff = (got.float() - want.float()).abs()
             rel = float((diff / (1 + want.float().abs())).max())
-            row = {"stage": stage_idx + 1, "dtype": tag, "shape": list(got.shape),
-                   "max_abs": float(diff.max()), "p999_abs": p999(diff),
-                   "max_rel": rel, "tol_rel": K1_TOL[tag],
-                   "ms": cuda_ms(lambda: K.fused_adaptive_cost_volume(*args), 20),
-                   "plain_ms": cuda_ms(lambda: K.fused_adaptive_cost_volume_plain(*args), 3, 1),
-                   "kernel_ms": device_ms(lambda: K.fused_adaptive_cost_volume(*args), K1_KERNEL)}
-            b, d, h, w, c = got.shape
-            row["bound_ms"], row["bound_by"] = k1_bound_ms(
-                b, d, h, w, c, NVIEWS - 1, got.element_size(), dv.dim() == 4)
+            row = {"stage": stage_idx + 1, "dtype": tag, "align_corners": ac,
+                   "shape": list(got.shape), "max_abs": float(diff.max()),
+                   "p999_abs": p999(diff), "max_rel": rel, "tol_rel": K1_TOL[tag]}
+            if not ac:
+                row.update({
+                    "ms": cuda_ms(lambda: K.fused_adaptive_cost_volume(*args), 20),
+                    "plain_ms": cuda_ms(lambda: K.fused_adaptive_cost_volume_plain(*args), 3, 1),
+                    "kernel_ms": device_ms(lambda: K.fused_adaptive_cost_volume(*args),
+                                           K1_KERNEL)})
+                b, d, h, w, c = got.shape
+                row["bound_ms"], row["bound_by"] = k1_bound_ms(
+                    b, d, h, w, c, NVIEWS - 1, got.element_size(), dv.dim() == 4)
             print("K1", json.dumps(row), flush=True)
-            check(rel <= K1_TOL[tag], f"K1 stage {stage_idx + 1} {tag}: "
+            check(rel <= K1_TOL[tag], f"K1 stage {stage_idx + 1} {tag} align_corners={ac}: "
                   f"max rel {rel} > {K1_TOL[tag]}")
             rows.append(row)
             del got, want, diff
@@ -805,17 +833,19 @@ def phase_k3(model, dev):
             dv = lo[:, None, None, None] + (hi - lo)[:, None, None, None] * u
         wts = fold_aggweight(model.DepthNet.weight_net[stage_idx])
         cot32 = torch.randn(b, d, h, w, STAGE_C[stage_idx], generator=gen, device=dev)
-        for tag in ("fp32", "bf16"):
+        # the serving convention timed; align_corners=True held alone
+        for tag, ac in (("fp32", False), ("bf16", False), ("fp32", True), ("bf16", True)):
             feas = feats[tag][stage_idx]
             ref, srcs = feas[:, 0].contiguous(), [feas[:, v].contiguous() for v in range(1, n)]
             cot = cot32.to(ref.dtype)
-            args = (ref, srcs, ref_p, src_p, dv, *wts)
+            args = (ref, srcs, ref_p, src_p, dv, *wts, ac)
             got = K.fused_adaptive_cost_volume_backward(cot, *args)
             torch.cuda.synchronize()
-            plain_args = (ref.float(), [s.float() for s in srcs], ref_p, src_p, dv, *wts)
+            plain_args = (ref.float(), [s.float() for s in srcs], ref_p, src_p, dv, *wts, ac)
             want = K.fused_adaptive_cost_volume_backward_plain(cot.float(), *plain_args)
             tol = K3_TOL[tag]
-            row = {"stage": stage_idx + 1, "dtype": tag, "shape": [b, d, h, w, ref.shape[-1]]}
+            row = {"stage": stage_idx + 1, "dtype": tag, "align_corners": ac,
+                   "shape": [b, d, h, w, ref.shape[-1]]}
             failures = []
             for name, g, wnt in [("dref", got[0], want[0])] + [
                     (f"dsrc{v}", gs, ws) for v, (gs, ws) in enumerate(zip(got[1], want[1]))]:
@@ -836,17 +866,19 @@ def phase_k3(model, dev):
             if row["wnet_rel_err"] > K3_WNET_TOL:
                 failures.append(f"weight net: {row['wnet_rel_err']} > {K3_WNET_TOL}")
             row["max_abs"] = max(v for k, v in row.items() if k.startswith("max_abs_"))
-            row["ms"] = cuda_ms(lambda: K.fused_adaptive_cost_volume_backward(cot, *args), 5)
-            row["k1_ms"] = cuda_ms(lambda: K.fused_adaptive_cost_volume(*args), 5)
-            row["kernel_ms"] = device_ms(
-                lambda: K.fused_adaptive_cost_volume_backward(cot, *args), K3_KERNEL, 3)
-            row["k1_kernel_ms"] = device_ms(lambda: K.fused_adaptive_cost_volume(*args), K1_KERNEL, 3)
-            row["plain_ms"] = cuda_ms(
-                lambda: K.fused_adaptive_cost_volume_backward_plain(cot, *args), 1, 1)
-            row["bound_ms"], row["bound_by"] = k3_bound_ms(
-                b, d, h, w, ref.shape[-1], n - 1, ref.element_size(), dv.dim() == 4)
+            if not ac:
+                row["ms"] = cuda_ms(lambda: K.fused_adaptive_cost_volume_backward(cot, *args), 5)
+                row["k1_ms"] = cuda_ms(lambda: K.fused_adaptive_cost_volume(*args), 5)
+                row["kernel_ms"] = device_ms(
+                    lambda: K.fused_adaptive_cost_volume_backward(cot, *args), K3_KERNEL, 3)
+                row["k1_kernel_ms"] = device_ms(lambda: K.fused_adaptive_cost_volume(*args),
+                                                K1_KERNEL, 3)
+                row["plain_ms"] = cuda_ms(
+                    lambda: K.fused_adaptive_cost_volume_backward_plain(cot, *args), 1, 1)
+                row["bound_ms"], row["bound_by"] = k3_bound_ms(
+                    b, d, h, w, ref.shape[-1], n - 1, ref.element_size(), dv.dim() == 4)
             print("K3", json.dumps(row), flush=True)
-            check(not failures, f"K3 stage {stage_idx + 1} {tag}: {failures}")
+            check(not failures, f"K3 stage {stage_idx + 1} {tag} align_corners={ac}: {failures}")
             rows.append(row)
             del got, want
         torch.cuda.empty_cache()
@@ -1287,25 +1319,13 @@ def phase_variance(sample, model, dev):
 @contextlib.contextmanager
 def numpy_image_codec():
     """Phase 13's image files through numpy: core/imageio.py's read_rgb and
-    write_rgb swapped for raw arrays (np.save) under the same .jpg names;
-    nothing else is replaced."""
-    import numpy as np
+    write_rgb swapped for raw arrays (np.save) under the same .jpg names
+    (``imageio.numpy_codec``); nothing else is replaced."""
     from damvsnet_tpu_torch.core import imageio
-
-    def read_rgb(path):
-        return np.load(path)
-
-    def write_rgb(path, rgb, quality=None, chroma_444=False):
-        with open(path, "wb") as f:
-            np.save(f, np.asarray(rgb, np.uint8))
-
-    saved = imageio.read_rgb, imageio.write_rgb
-    imageio.read_rgb, imageio.write_rgb = read_rgb, write_rgb
-    print("image codec: numpy stand-in (the card's machine has no PIL or cv2)", flush=True)
-    try:
+    print("image codec: numpy stand-in (core/imageio.py's read_rgb and write_rgb swapped)",
+          flush=True)
+    with imageio.numpy_codec():
         yield
-    finally:
-        imageio.read_rgb, imageio.write_rgb = saved
 
 
 @contextlib.contextmanager
@@ -1651,6 +1671,59 @@ def phase_tnt_recipe(dev):
                "parity": parity}
     print("TnT recipe", json.dumps(summary), flush=True)
     check(len(xyz) > 0 and bool(np.isfinite(xyz).all()), f"the PLY has {len(xyz)} points")
+    return launches, summary
+
+
+def accuracy_chain():
+    """scripts/e2e_synthetic_torch.py as a module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "e2e_synthetic_torch.py")
+    spec = importlib.util.spec_from_file_location("e2e_synthetic_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_accuracy_chain():
+    """Phase 25: the accuracy chain's ``main`` in this process (training
+    from scratch, the weights-only restore, serving the held-out scene, the
+    device fusion, the DTU protocol) with every launch counter set to 0 just
+    before and read just after. Returns ({counter: launches}, summary)."""
+    import torch
+    chain = accuracy_chain()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = CHAIN_ARGV + ["--workdir", tmp, "--out", os.path.join(tmp, "accuracy.json")]
+        print("accuracy chain argv", json.dumps(CHAIN_ARGV), flush=True)
+        log = io.StringIO()
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            report = chain.main(argv)
+        torch.cuda.synchronize()
+        chain_s = time.perf_counter() - t0
+        launches = read_counters()
+    # the per-step log lines stay out of the smoke's output
+    print("".join(line for line in log.getvalue().splitlines(keepends=True)
+                  if " iter " not in line), end="", flush=True)
+    views = report["inference"]["views"]
+    check_launches("accuracy chain", launches, {"fused_adaptive_cost_volume": 3,
+                                                "prob_volume_stats_fused": 3}, views)
+    curve = [e["loss"] for e in report["train_curve"]]
+    check(len(curve) == 2 and curve[1] <= CHAIN_LOSS_DROP * curve[0],
+          f"accuracy chain: epoch losses {curve}, the second above {CHAIN_LOSS_DROP} x the first")
+    check(report["checkpoint"]["restored_bitwise"],
+          "accuracy chain: the restored weights or statistics differ from the trained ones")
+    check(report["depth"]["finite"], "accuracy chain: non-finite depth error")
+    check(report["fusion"]["points_device_backend"] > 0, "accuracy chain: empty device cloud")
+    summary = {"chain_s": chain_s, "epoch_loss": curve, "train_steps": report["train_steps"],
+               "train_step_ms_median": report["train_step_ms_median"],
+               "s_per_view": report["inference"]["sec_per_view"], "views": views,
+               "peak_gib": report["peak_gib"], "depth": report["depth"],
+               "fusion": report["fusion"], "dtu_mm": report["dtu_protocol"],
+               "reduced": report["reduced"], "launches": launches}
+    print("accuracy chain", json.dumps(summary), flush=True)
     return launches, summary
 
 
@@ -3106,11 +3179,13 @@ def main():
         phase_slab_cli(smi, workdir)
     torch.cuda.empty_cache()
     tnt_launches, tnt = phase_tnt_recipe(dev)
+    torch.cuda.empty_cache()
+    chain_launches, chain = phase_accuracy_chain()
 
     def summary(name, rows, source, replaces, counter):
         """bf16 rows summed over the stages (one request's or one step's
         launches); library_ms where one PyTorch call computes the same."""
-        main_rows = [r for r in rows if r["dtype"] == "bf16"]
+        main_rows = [r for r in rows if r["dtype"] == "bf16" and not r.get("align_corners")]
         by_path = {"serving": launches[counter], "training": train_launches[counter],
                    "serving_variance": var_launches[counter],
                    "training_nonfused": nonfused_launches[counter],
@@ -3122,7 +3197,8 @@ def main():
                    "training_ddp": ddp_launches[counter],
                    "test_cli_scan_parallel": scan_launches[counter],
                    "serving_fmt_sp": sp_launches[counter],
-                   "test_cli_tnt_recipe": tnt_launches[counter]}
+                   "test_cli_tnt_recipe": tnt_launches[counter],
+                   "accuracy_chain": chain_launches[counter]}
         by_path.update({path: n[counter] for path, n in slab_launches.items()})
         library = [r.get("library_ms") for r in main_rows]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3218,6 +3294,15 @@ def main():
           f"{tnt['peak_mem_gib']:.2f} GiB, {tnt['points']} points, launches "
           f"{json.dumps(tnt['launches'])} ({TNT_W}x{TNT_H}, {TNT_VIEWS} views, bf16, {smi})",
           flush=True)
+    print(f"accuracy chain: {chain['train_steps']} training steps, "
+          f"{chain['train_step_ms_median']:.1f} ms per step (median), epoch losses "
+          f"{chain['epoch_loss']}, {chain['s_per_view']} s/view, depth "
+          f"{chain['depth']['abs_err_mm_mean']} mm mean abs error, "
+          f"{chain['depth']['frac_within_1_interval']} within one interval, "
+          f"{chain['fusion']['points']} points, DTU acc {chain['dtu_mm']['acc']} / comp "
+          f"{chain['dtu_mm']['comp']} / overall {chain['dtu_mm']['overall']} mm "
+          f"({chain['dtu_mm']['backend']}), {chain['chain_s']:.1f} s "
+          f"(128x160, N=5, fp32, 2 epochs, {smi})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -144,9 +144,11 @@ class CascadeMVSNet(nn.Module):
     inference only). use_geo_fusion: GeoFeatureFusion at stages 2/3.
     cr_base_chs: each stage's U-Net base width. clamp_samples: clip the
     stage-2/3 hypotheses into the input sweep range. align_corners: the
-    sampler's grid un-normalization, read only in variance mode (as in the
-    JAX package). fused_train: train the adaptive cost volume through K1/K3
-    with the folded weight net, read only in ``.train()``; off (the JAX
+    sampler's grid un-normalization on every cost-volume route (K1, K3,
+    K4's variance entry and the plain warp), as JAX's ``sampler_opts=
+    {"align_corners": True}``; nothing else reads it. fused_train: train
+    the adaptive cost volume through K1/K3 with the folded weight net,
+    read only in ``.train()``; off (the JAX
     package's default), training takes the plain warp and the weight net's
     batch statistics. use_fmt: the FMT pathway on the views' features.
     grad_method: "detach" (the default) or "undetach" (the stage handoff
@@ -198,8 +200,6 @@ class CascadeMVSNet(nn.Module):
                              f"cr_base_chs={cr_base_chs}")
         if agg_mode not in ("adaptive", "variance"):
             raise ValueError(f"agg_mode {agg_mode!r} is neither 'adaptive' nor 'variance'")
-        if align_corners and agg_mode != "variance":
-            raise ValueError("align_corners is read only by the variance cost volume")
         if share_cr:
             raise ValueError(
                 "share_cr: one CostRegNet cannot take the cost volumes of all three "
@@ -376,11 +376,12 @@ class CascadeMVSNet(nn.Module):
             # compute dtype, as the JAX package's convolutions take it; the
             # net's weights come back in that dtype and the view sum stays fp32
             return build_cost_volume(ref_fea, src_feas, ref_proj, src_projs, samples,
-                                     lambda diff_sq: net(diff_sq.to(self.compute_dtype)))
+                                     lambda diff_sq: net(diff_sq.to(self.compute_dtype)),
+                                     self.align_corners)
         costvol = (fused_adaptive_cost_volume_plain if self.plain
                    else fused_adaptive_cost_volume)
         return costvol(ref_fea, src_feas, ref_proj, src_projs, samples,
-                       *fold_aggweight(net))
+                       *fold_aggweight(net), self.align_corners)
 
     def _view_features(self, imgs: torch.Tensor) -> dict:
         """{stage: [B, N, h, w, C]}, each view's feature map NHWC. At

@@ -38,15 +38,16 @@ from .warp import plane_sweep_warp
 def build_cost_volume(ref_fea: torch.Tensor, src_feas: Sequence[torch.Tensor],
                       ref_proj: torch.Tensor, src_projs: Sequence[torch.Tensor],
                       depth_values: torch.Tensor,
-                      weight_fn: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+                      weight_fn: Callable[[torch.Tensor], torch.Tensor],
+                      align_corners: bool = False) -> torch.Tensor:
     """ref_fea [B,H,W,C]; src_feas: list of [B,H,W,C]; projs fused [B,4,4];
     depth_values [B,D] or [B,D,H,W]; weight_fn maps the fp32 [B,D,H,W,C]
-    squared difference to [B,D,H,W,1] weights. Returns [B,D,H,W,C] in the
-    feature dtype."""
+    squared difference to [B,D,H,W,1] weights; align_corners: the warp's
+    grid un-normalization. Returns [B,D,H,W,C] in the feature dtype."""
     ref_volume = ref_fea.float()[:, None]
     vol = None
     for src_fea, src_proj in zip(src_feas, src_projs):
-        warped = plane_sweep_warp(src_fea, src_proj, ref_proj, depth_values)
+        warped = plane_sweep_warp(src_fea, src_proj, ref_proj, depth_values, align_corners)
         diff_sq = (ref_volume - warped) ** 2
         contrib = (weight_fn(diff_sq) + 1.0) * diff_sq
         vol = contrib if vol is None else vol + contrib

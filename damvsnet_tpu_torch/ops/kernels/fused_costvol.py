@@ -46,17 +46,17 @@ def folded_weight_fn(w1, b1, w2, b2):
 
 
 def fused_adaptive_cost_volume_plain(ref_fea, src_feas, ref_proj, src_projs,
-                                     depth_values, w1, b1, w2, b2):
+                                     depth_values, w1, b1, w2, b2, align_corners=False):
     """The kernel's plain PyTorch version (same inputs, same result).
     The plain warp detaches its sampling coordinates, so torch autograd
     through this function is the plain version of K3."""
     return build_cost_volume(ref_fea, src_feas, ref_proj, src_projs, depth_values,
-                             folded_weight_fn(w1, b1, w2, b2))
+                             folded_weight_fn(w1, b1, w2, b2), align_corners)
 
 
 def fused_adaptive_cost_volume_backward_plain(grad_out, ref_fea, src_feas,
                                               ref_proj, src_projs, depth_values,
-                                              w1, b1, w2, b2):
+                                              w1, b1, w2, b2, align_corners=False):
     """K3's plain version: torch autograd of the plain forward with
     cotangent ``grad_out``. Returns (dref, [dsrc_v], dw1, db1, dw2, db2)."""
     with torch.enable_grad():
@@ -64,7 +64,8 @@ def fused_adaptive_cost_volume_backward_plain(grad_out, ref_fea, src_feas,
         wts = [torch.as_tensor(t, dtype=torch.float32, device=ref_fea.device)
                .detach().requires_grad_() for t in (w1, b1, w2, b2)]
         vol = fused_adaptive_cost_volume_plain(feas[0], feas[1:], ref_proj,
-                                               src_projs, depth_values, *wts)
+                                               src_projs, depth_values, *wts,
+                                               align_corners)
         grads = torch.autograd.grad(vol, feas + wts, grad_out)
     v = len(src_feas)
     return (grads[0], list(grads[1:1 + v]), *grads[1 + v:])
@@ -168,18 +169,21 @@ def fused_adaptive_cost_volume(ref_fea: torch.Tensor,
                                ref_proj: torch.Tensor,
                                src_projs: Sequence[torch.Tensor],
                                depth_values: torch.Tensor,
-                               w1, b1, w2, b2) -> torch.Tensor:
+                               w1, b1, w2, b2, align_corners: bool = False) -> torch.Tensor:
     """Adaptive cost volume [B, D, H, W, C] in the feature dtype.
 
     ref_fea [B,H,W,C]; src_feas: V tensors [B,H,W,C]; projs fused [B,4,4];
     depth_values [B,D] or [B,D,H,W] fp32; (w1 [C], b1, w2, b2) from
-    ``nn.aggweight.fold_aggweight``. CPU tensors run the plain version
+    ``nn.aggweight.fold_aggweight``; align_corners: the grid
+    un-normalization (ops/warp.py), which the kernels read as the pixel
+    affine (sx, ox, sy, oy). CPU tensors run the plain version
     (differentiable by torch autograd); CUDA tensors launch K1, with K3 as
     the backward when a feature or weight requires grad, or raise. More
     than 16 source views take one launch per chunk of at most 16."""
     if ref_fea.device.type == "cpu":
         return fused_adaptive_cost_volume_plain(
-            ref_fea, src_feas, ref_proj, src_projs, depth_values, w1, b1, w2, b2)
+            ref_fea, src_feas, ref_proj, src_projs, depth_values, w1, b1, w2, b2,
+            align_corners)
     v = len(src_feas)
     if v > MAX_VIEWS:
         vol = None
@@ -187,11 +191,11 @@ def fused_adaptive_cost_volume(ref_fea: torch.Tensor,
             k = len(src_feas[part])
             vol_k = fused_adaptive_cost_volume(ref_fea, src_feas[part], ref_proj,
                                                src_projs[part], depth_values,
-                                               w1, b1, w2, b2).float() * (k / v)
+                                               w1, b1, w2, b2, align_corners).float() * (k / v)
             vol = vol_k if vol is None else vol + vol_k
         return vol.to(ref_fea.dtype)
     L = prepare_views("fused_adaptive_cost_volume", ref_fea, src_feas, ref_proj,
-                      src_projs, depth_values)
+                      src_projs, depth_values, align_corners)
     params = _params(w1, b1, w2, b2, L)
     if torch.is_grad_enabled() and (params.requires_grad or ref_fea.requires_grad
                                     or any(s.requires_grad for s in src_feas)):
@@ -205,7 +209,7 @@ def fused_adaptive_cost_volume_backward(grad_out: torch.Tensor,
                                         ref_proj: torch.Tensor,
                                         src_projs: Sequence[torch.Tensor],
                                         depth_values: torch.Tensor,
-                                        w1, b1, w2, b2):
+                                        w1, b1, w2, b2, align_corners: bool = False):
     """K3 on its own: the gradients of sum(volume * grad_out) with respect
     to (ref_fea, src_feas, w1, b1, w2, b2), returned as (dref, [dsrc_v],
     dw1 [C], db1, dw2, db2); the features' gradients in their dtype, the
@@ -215,9 +219,9 @@ def fused_adaptive_cost_volume_backward(grad_out: torch.Tensor,
     if ref_fea.device.type == "cpu":
         return fused_adaptive_cost_volume_backward_plain(
             grad_out, ref_fea, src_feas, ref_proj, src_projs, depth_values,
-            w1, b1, w2, b2)
+            w1, b1, w2, b2, align_corners)
     L = prepare_views("fused_adaptive_cost_volume_backward", ref_fea, src_feas,
-                      ref_proj, src_projs, depth_values)
+                      ref_proj, src_projs, depth_values, align_corners)
     dref, dsrc, dw = _launch_backward(L, _params(w1, b1, w2, b2, L), ref_fea,
                                       src_feas, grad_out)
     c = L.c

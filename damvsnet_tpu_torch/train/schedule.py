@@ -1,6 +1,7 @@
 """LR schedule and optimizer; counterpart of damvsnet_tpu/train/schedule.py.
 
-Linear warmup over 500 iterations from a factor of 1/3 to 1, then
+Linear warmup (500 iterations unless the caller names another count) from
+a factor of 1/3 to 1, then
 lr *= gamma at each milestone iteration (reference WarmupMultiStepLR,
 utils.py:208-252; recipe train.py:93-96). Milestones are given in epochs
 with the "10,12,14:2" syntax (gamma = 1/2). The schedule is a
@@ -46,15 +47,16 @@ def warmup_multistep_schedule(base_lr: float, milestones_iters, gamma: float,
 
 
 def make_optimizer(params, base_lr: float, lrepochs: str, iters_per_epoch: int,
-                   weight_decay: float = 0.0):
+                   weight_decay: float = 0.0, warmup_iters: int = WARMUP_ITERS):
     """(optimizer, scheduler): Adam with the reference recipe (train.py:439:
     betas 0.9/0.999, eps 1e-8), or AdamW when weight_decay > 0 (decoupled
     decay scaled by the lr, as optax's adamw), under the warmup-multistep
-    schedule. Call ``scheduler.step()`` after every ``optimizer.step()``."""
+    schedule warming up over ``warmup_iters`` steps. Call
+    ``scheduler.step()`` after every ``optimizer.step()``."""
     milestones, gamma = parse_lr_epochs(lrepochs)
     cls = torch.optim.AdamW if weight_decay else torch.optim.Adam
     opt = cls(params, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
               weight_decay=weight_decay)
     sched = torch.optim.lr_scheduler.LambdaLR(opt, warmup_multistep_factor(
-        [m * iters_per_epoch for m in milestones], gamma))
+        [m * iters_per_epoch for m in milestones], gamma, warmup_iters))
     return opt, sched

@@ -17,8 +17,9 @@ runs phase 14 first when the list has not, for its bf16 limit), and the
 depth-slab axis: 21 (slab serving on 2 ranks), 22 (slab training: the
 fused step on 2 ranks and on the 2x2 mesh, the non-fused step on 2 ranks;
 its one-process peak is phase 10's, not measured here), 23 (the training
-CLI on the 2x2 mesh, then a 1-rank resume), and 24 (the Tanks-and-Temples
-recipe, scripts/test_tnt_torch.sh, at 1920x1056 with 11 views). Each
+CLI on the 2x2 mesh, then a 1-rank resume), 24 (the Tanks-and-Temples
+recipe, scripts/test_tnt_torch.sh, at 1920x1056 with 11 views) and 25 (the
+accuracy chain, scripts/e2e_synthetic_torch.py, for 2 epochs). Each
 prints its chip_smoke.py lines, prefixed with the tree, and fails as the
 smoke does.
 """
@@ -83,6 +84,8 @@ for phase in sys.argv[1:]:
         c.phase_slab_cli(smi, workdir.name)
     elif phase == "24":
         c.phase_tnt_recipe(dev)
+    elif phase == "25":
+        c.phase_accuracy_chain()
     torch.cuda.empty_cache()
 workdir.cleanup()
 """
@@ -92,7 +95,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("phases", nargs="+",
                     choices=["5", "7", "13", "14", "15", "16", "17", "18", "19", "20", "21",
-                             "22", "23", "24"])
+                             "22", "23", "24", "25"])
     ap.add_argument("--trees", nargs="+", default=[REPO])
     args = ap.parse_args()
     for tree in args.trees:

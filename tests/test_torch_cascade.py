@@ -4,7 +4,9 @@ weights (passed through the bridge) and the same inputs, in fp32 on the CPU.
 Both run geo fusion and adaptive aggregation at ndepths (8, 8, 8), B=1,
 N=3, 32x32, with clamp_samples on (the port's shipped configuration) and
 off (the JAX package's default, what its ``cli/test.py
---no_clamp_samples`` serves). JAX takes its XLA paths on the CPU;
+--no_clamp_samples`` serves), and off with the cost volume sampled
+align_corners=True (JAX's ``sampler_opts={"align_corners": True}``, the
+accuracy chain's model, scripts/e2e_synthetic.py). JAX takes its XLA paths on the CPU;
 the port takes its kernels' plain versions (the wrappers on CPU tensors).
 Depth, confidence and the 3-sigma band (and the probability volume and
 the hypotheses) agree per stage to 1e-4, the tolerance
@@ -31,16 +33,18 @@ NDEPTHS = (8, 8, 8)
 STAGES = ("stage1", "stage2", "stage3")
 
 
-@pytest.fixture(scope="module", params=[True, False], ids=["clamp", "noclamp"])
+@pytest.fixture(scope="module", params=[(True, False), (False, False), (False, True)],
+                ids=["clamp", "noclamp", "noclamp_align_corners"])
 def both(request):
     """JAX outputs (run once) and the port model on the same weights, for
-    one clamp_samples setting."""
-    clamp = request.param
+    one (clamp_samples, align_corners) setting."""
+    clamp, align_corners = request.param
     batch = _batch(0)
     jargs = (jnp.asarray(batch["imgs"]),
              {k: jnp.asarray(v) for k, v in batch["proj_matrices"].items()},
              jnp.asarray(batch["depth_values"]))
-    jmodel = JCascade(ndepths=NDEPTHS, cr_base_chs=(8, 8, 8), clamp_samples=clamp)
+    jmodel = JCascade(ndepths=NDEPTHS, cr_base_chs=(8, 8, 8), clamp_samples=clamp,
+                      sampler_opts={"align_corners": True} if align_corners else None)
     # jitted: an eager flax init of the cascade takes minutes on the CPU
     variables = jax.jit(jmodel.init, static_argnames=("train",))(
         jax.random.PRNGKey(0), *jargs, train=False)
@@ -50,7 +54,8 @@ def both(request):
     want = {s: {k: np.asarray(want[s][k]) for k in
                 ("depth", "photometric_confidence", "variance", "prob_volume",
                  "depth_values")} for s in STAGES}
-    port = CascadeMVSNet(ndepths=NDEPTHS, device="cpu", clamp_samples=clamp)
+    port = CascadeMVSNet(ndepths=NDEPTHS, device="cpu", clamp_samples=clamp,
+                         align_corners=align_corners)
     port.load_state_dict(state_dict_from_flax(flat), strict=True)
     return batch, want, port
 

@@ -86,12 +86,12 @@ def test_depth_runner_serves_variance(both):
 
 def test_variance_configuration_modules():
     """No weight net in variance mode, no geo fusion without it, U-Net
-    widths from cr_base_chs; align_corners only with variance."""
+    widths from cr_base_chs; align_corners kept in either aggregation."""
     model = CascadeMVSNet(ndepths=NDEPTHS, device="cpu", agg_mode="variance",
                           use_geo_fusion=False, cr_base_chs=(8, 4, 16))
     names = {k.split(".")[0] for k in model.state_dict()}
     assert names == {"feature", "cost_regularization"}
     assert [r.conv0.conv.out_channels for r in model.cost_regularization] == [8, 4, 16]
     assert CascadeMVSNet(device="cpu", agg_mode="variance", align_corners=True).align_corners
-    with pytest.raises(ValueError, match="align_corners"):
-        CascadeMVSNet(device="cpu", align_corners=True)
+    adaptive = CascadeMVSNet(device="cpu", align_corners=True)
+    assert adaptive.agg_mode == "adaptive" and adaptive.align_corners

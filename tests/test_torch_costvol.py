@@ -81,8 +81,12 @@ def test_fold_aggweight_matches_module(rng, wnets):
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=1e-6)
 
 
-@pytest.mark.parametrize("per_pixel", [False, True])
-def test_plain_and_wrapper_match_jax(rng, wnets, per_pixel):
+# (per-pixel hypotheses, align_corners); the ids of the first two cases
+# predate the align_corners axis
+@pytest.mark.parametrize("per_pixel, align_corners",
+                         [(False, False), (True, False), (False, True), (True, True)],
+                         ids=["False", "True", "False-align_corners", "True-align_corners"])
+def test_plain_and_wrapper_match_jax(rng, wnets, per_pixel, align_corners):
     net, jvars, port = wnets
     projs = fused_projs(B, V + 1, H, W)
     feas = [rng.standard_normal((B, H, W, C)).astype(np.float32)
@@ -96,11 +100,13 @@ def test_plain_and_wrapper_match_jax(rng, wnets, per_pixel):
     want_xla = np.asarray(jbuild(
         jnp.asarray(feas[0]), [jnp.asarray(f) for f in feas[1:]],
         jnp.asarray(projs[0]), [jnp.asarray(p) for p in projs[1:]],
-        jnp.asarray(dv), mode="adaptive", weight_fn=jw, sampler="xla"))
+        jnp.asarray(dv), mode="adaptive", weight_fn=jw, align_corners=align_corners,
+        sampler="xla"))
     want_pallas, overflow = jfused(
         jnp.asarray(feas[0]), [jnp.asarray(f) for f in feas[1:]],
         jnp.asarray(projs[0]), [jnp.asarray(p) for p in projs[1:]],
-        jnp.asarray(dv), *jfold(jvars), wb=W, band_rows=H, interpret=True)
+        jnp.asarray(dv), *jfold(jvars), align_corners=align_corners, wb=W, band_rows=H,
+        interpret=True)
     assert int(np.asarray(overflow).sum()) == 0
 
     t = [torch.from_numpy(f) for f in feas]
@@ -109,10 +115,11 @@ def test_plain_and_wrapper_match_jax(rng, wnets, per_pixel):
     launches = fused_costvol.fused_adaptive_cost_volume.launches
     with torch.no_grad():
         got_wrapper = fused_costvol.fused_adaptive_cost_volume(
-            t[0], t[1:], tp[0], tp[1:], torch.from_numpy(dv), w1, b1, w2, b2)
+            t[0], t[1:], tp[0], tp[1:], torch.from_numpy(dv), w1, b1, w2, b2,
+            align_corners)
         # the plain version with the unfolded module as its weight net
         got_module = build_cost_volume(t[0], t[1:], tp[0], tp[1:],
-                                       torch.from_numpy(dv), port)
+                                       torch.from_numpy(dv), port, align_corners)
     assert fused_costvol.fused_adaptive_cost_volume.launches == launches
     assert got_wrapper.shape == (B, D, H, W, C)
     for got in (got_wrapper.numpy(), got_module.numpy()):

@@ -56,9 +56,10 @@ def _inputs(dev, dtype, c, per_pixel, b=1, h=24, w=40, d=6, views=4, seed=0):
 @pytest.mark.parametrize("c", [8, 16, 32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("per_pixel", [False, True])
-def test_fused_costvol_matches_plain(dev, c, dtype, per_pixel):
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_fused_costvol_matches_plain(dev, c, dtype, per_pixel, align_corners):
     feas, projs, dv, w1, b1, w2, b2 = _inputs(dev, dtype, c, per_pixel)
-    args = (feas[0], feas[1:], projs[0], projs[1:], dv, w1, b1, w2, b2)
+    args = (feas[0], feas[1:], projs[0], projs[1:], dv, w1, b1, w2, b2, align_corners)
     n0 = fused_costvol.fused_adaptive_cost_volume.launches
     got = fused_costvol.fused_adaptive_cost_volume(*args)
     torch.cuda.synchronize()
@@ -104,20 +105,21 @@ def test_probstats_matches_plain(dev, per_pixel):
 @pytest.mark.parametrize("c", [8, 16, 32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("per_pixel", [False, True])
-def test_fused_costvol_backward_matches_plain(dev, c, dtype, per_pixel):
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_fused_costvol_backward_matches_plain(dev, c, dtype, per_pixel, align_corners):
     """K3 against torch autograd of the plain forward (in fp32 on the same
     inputs); fp32 atomics sum in another order on every run."""
     feas, projs, dv, w1, b1, w2, b2 = _inputs(dev, dtype, c, per_pixel, b=2)
     g = torch.Generator(device=dev).manual_seed(3)
     cot = torch.randn((2, dv.shape[1], 24, 40, c), generator=g, device=dev).to(dtype)
-    args = (feas[0], feas[1:], projs[0], projs[1:], dv, w1, b1, w2, b2)
+    args = (feas[0], feas[1:], projs[0], projs[1:], dv, w1, b1, w2, b2, align_corners)
     n0 = fused_costvol.fused_adaptive_cost_volume_backward.launches
     got = fused_costvol.fused_adaptive_cost_volume_backward(cot, *args)
     torch.cuda.synchronize()
     assert fused_costvol.fused_adaptive_cost_volume_backward.launches == n0 + 1
     want = fused_costvol.fused_adaptive_cost_volume_backward_plain(
         cot.float(), feas[0].float(), [f.float() for f in feas[1:]], projs[0],
-        projs[1:], dv, w1, b1, w2, b2)
+        projs[1:], dv, w1, b1, w2, b2, align_corners)
     rel = 1e-4 if dtype == torch.float32 else 2.0 ** -8
     for gt, wt in [(got[0], want[0])] + list(zip(got[1], want[1])):
         assert gt.dtype == dtype and gt.shape == wt.shape

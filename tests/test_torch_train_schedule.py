@@ -40,6 +40,26 @@ def test_schedule_matches_optax_schedule(wd):
                                    err_msg=f"step {step}")
 
 
+@pytest.mark.parametrize("warmup_iters", [100, 1])
+def test_warmup_iters_matches_jax_at_every_step(warmup_iters):
+    """``make_optimizer(..., warmup_iters=)`` against JAX's at every step of
+    a short run: the warmup, then two milestones ("3,4:2" of 40 steps an
+    epoch: steps 120 and 160), as scripts/e2e_synthetic_torch.py builds it."""
+    iters, base = 40, 1e-3
+    _, jsched = jschedule.make_optimizer(base, "3,4:2", iters, 0.0, warmup_iters=warmup_iters)
+    p = torch.nn.Parameter(torch.zeros(3))
+    opt, sched = tschedule.make_optimizer([p], base, "3,4:2", iters, 0.0,
+                                          warmup_iters=warmup_iters)
+    got, want = [], []
+    for step in range(200):
+        got.append(opt.param_groups[0]["lr"])
+        want.append(float(jsched(step)))
+        opt.step()
+        sched.step()
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert got[warmup_iters] == pytest.approx(base) and got[199] == pytest.approx(base / 4)
+
+
 @pytest.mark.parametrize("wd", [0.0, 0.01])
 def test_one_update_matches_optax(wd):
     """One and then a second update of a toy tensor: Adam (betas 0.9/0.999,

@@ -24,13 +24,19 @@ its bias's (the second BN undoes a joint scaling of both). What fp32 gives
 for such a gradient is the rounding left over from cancelling sums over
 every voxel and view, which the two packages round differently; measured
 against the block's own scale, both agree to 1e-3.
+
+With the plain warp sampling align_corners=True (JAX's ``sampler_opts=
+{"align_corners": True}``, the accuracy chain's training step), the step
+is held by its losses at rtol 1e-4 and its whole gradient's relative L2 at
+1e-2, as chip_smoke.py holds the card's steps.
 """
 import numpy as np
 import pytest
 import torch
 
 from torch_helpers import (assert_gradients_match, assert_running_statistics_match,
-                           jax_train_step, port_train_step, synthetic_train_batch)
+                           assert_step_matches_by_l2, jax_train_step, port_train_step,
+                           synthetic_train_batch)
 
 torch.set_num_threads(1)
 
@@ -79,3 +85,11 @@ def test_weight_net_statistics_move(both):
     for i, net in enumerate(got["model"].DepthNet.weight_net):
         for name, p in net.named_parameters():
             assert float(p.grad.abs().sum()) > 0, f"weight_net.{i}.{name}"
+
+
+def test_align_corners_step_matches():
+    batch = synthetic_train_batch(SCENES)
+    params, stats, want = jax_train_step(batch, NDEPTHS,
+                                         sampler_opts={"align_corners": True}, **CONFIG)
+    got = port_train_step(batch, params, stats, NDEPTHS, align_corners=True, **CONFIG)
+    assert_step_matches_by_l2(want, got)

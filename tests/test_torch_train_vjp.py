@@ -25,14 +25,16 @@ from conftest import make_rig
 
 torch.set_num_threads(1)
 
-# (B, N, H, W, C, D, per-pixel hypotheses): the setup of
-# tests/test_fused_costvol_vjp.py, then a [B, D] sweep at C=32
-CASES = {"c8_per_pixel": (1, 3, 16, 32, 8, 8, True),
-         "c32_sweep": (2, 3, 16, 32, 32, 8, False)}
+# (B, N, H, W, C, D, per-pixel hypotheses, align_corners): the setup of
+# tests/test_fused_costvol_vjp.py, then a [B, D] sweep at C=32, then the
+# first with the grid un-normalized align_corners=True
+CASES = {"c8_per_pixel": (1, 3, 16, 32, 8, 8, True, False),
+         "c32_sweep": (2, 3, 16, 32, 32, 8, False, False),
+         "c8_per_pixel_align_corners": (1, 3, 16, 32, 8, 8, True, True)}
 
 
 def _inputs(case, seed=0):
-    b, nv, h, w, c, d, per_pixel = CASES[case]
+    b, nv, h, w, c, d, per_pixel, align_corners = CASES[case]
     rs = np.random.default_rng(seed)
     _, projs = make_rig(batch=b, num_views=nv, height=h, width=w, seed=seed)
     fused = np.array(fuse_projection_matrices(jnp.asarray(projs)))
@@ -48,6 +50,7 @@ def _inputs(case, seed=0):
         "dv": dv, "w1": (rs.standard_normal(c) * 0.1).astype(np.float32),
         "scal": (np.float32(0.05), np.float32(1.3), np.float32(0.02)),
         "cot": rs.standard_normal((b, d, h, w, c)).astype(np.float32),
+        "align_corners": align_corners,
     }
 
 
@@ -63,7 +66,7 @@ def case(request):
     def loss(ref, srcs, w1, b1, w2, b2):
         vol, _ = fused_adaptive_cost_volume_vjp(
             ref, srcs, ref_proj, src_projs, jnp.asarray(x["dv"]), w1, b1, w2, b2,
-            interpret=True)
+            align_corners=x["align_corners"], interpret=True)
         return jnp.sum(vol.astype(jnp.float32) * cot)
 
     grads = jax.grad(loss, argnums=(0, 1, 2, 3, 4, 5))(
@@ -86,7 +89,7 @@ def _autograd(fn, x):
     leaves = [ref, *srcs, w1, b1, w2, b2]
     for t in leaves:
         t.requires_grad_()
-    vol = fn(ref, srcs, ref_proj, src_projs, dv, w1, b1, w2, b2)
+    vol = fn(ref, srcs, ref_proj, src_projs, dv, w1, b1, w2, b2, x["align_corners"])
     (vol.float() * torch.from_numpy(x["cot"])).sum().backward()
     n = len(srcs)
     return (ref.grad, [s.grad for s in srcs], *(t.grad for t in leaves[1 + n:]))
@@ -120,7 +123,7 @@ def test_wrapper_on_cpu_is_plain_and_launches_nothing(case):
 def test_backward_wrapper_on_cpu_matches_jax_vjp(case):
     x, want = case
     got = fused_costvol.fused_adaptive_cost_volume_backward(
-        torch.from_numpy(x["cot"]), *_torch_args(x))
+        torch.from_numpy(x["cot"]), *_torch_args(x), x["align_corners"])
     _compare(got, want)
     assert fused_costvol.fused_adaptive_cost_volume_backward.launches == 0
 
@@ -133,7 +136,7 @@ def test_no_gradient_to_geometry_or_hypotheses(case):
     for t in (ref, dv, ref_proj, *src_projs):
         t.requires_grad_()
     vol = fused_costvol.fused_adaptive_cost_volume(
-        ref, srcs, ref_proj, src_projs, dv, w1, b1, w2, b2)
+        ref, srcs, ref_proj, src_projs, dv, w1, b1, w2, b2, x["align_corners"])
     vol.sum().backward()
     assert ref.grad is not None
     assert dv.grad is None and ref_proj.grad is None

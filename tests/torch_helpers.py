@@ -301,3 +301,20 @@ def assert_running_statistics_match(want, got):
     for name in names:
         np.testing.assert_allclose(sd[name].numpy(), want["stats"][name],
                                    rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def assert_step_matches_by_l2(want, got, loss_rtol=1e-4, grad_l2=1e-2):
+    """The losses at ``loss_rtol`` and the whole gradient, every parameter's
+    flattened together, within ``grad_l2`` relative L2 of JAX's: the limits
+    chip_smoke.py holds the card's steps to, for steps whose per-tensor
+    gradient is not held (a rounding that crosses a ReLU kink moves a few
+    tensors by percents)."""
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=loss_rtol,
+                               err_msg="total, depth, cpc")
+    named = dict(got["model"].named_parameters())
+    assert set(named) <= set(want["grads"])
+    g = np.concatenate([p.grad.numpy().ravel() for p in named.values()])
+    w = np.concatenate([want["grads"][k].ravel() for k in named])
+    assert np.isfinite(g).all()
+    rel = np.linalg.norm(g - w) / np.linalg.norm(w)
+    assert rel <= grad_l2, rel
