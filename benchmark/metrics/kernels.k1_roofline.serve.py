@@ -1,0 +1,7 @@
+"""K1 (``fused_costvol_kernel``): its least time at the three stages'
+shapes over its device time, a request, in %."""
+from benchmark.readers import roofline
+
+
+def read(record):
+    return roofline(record, "k1", "fused_costvol_kernel")

@@ -1,0 +1,7 @@
+"""K4's variance entry (``sweep_variance_kernel``): its least time at the
+three stages' shapes over its device time, a request, in %."""
+from benchmark.readers import roofline
+
+
+def read(record):
+    return roofline(record, "k4var", "sweep_variance_kernel")
