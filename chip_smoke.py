@@ -1729,7 +1729,8 @@ def phase_accuracy_chain():
 
 def device_profile(fn, iters=3):
     """(device ms, device activities) per call of ``fn``: every kernel,
-    copy and fill on the card under torch.profiler."""
+    copy and fill on the card under torch.profiler (not the device-side
+    copies of the port's spans, which are annotations)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1741,7 +1742,7 @@ def device_profile(fn, iters=3):
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-                  and not e.name.startswith("Activity Buffer")]
+                  and not e.is_user_annotation and not e.name.startswith("Activity Buffer")]
         if events:
             return (sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters,
                     len(events) / iters)
@@ -2691,7 +2692,8 @@ def child_slab_nonfused(workdir):
 
 def step_device_profile(fn):
     """One call of ``fn`` under torch.profiler: its host time, the device
-    time of its kernels, copies and fills (summed, overlap not removed),
+    time of its kernels, copies and fills (summed, overlap not removed; the
+    device-side copies of the port's spans are annotations, left out),
     the eight kernels with the most device time, and the collectives' host
     time."""
     import torch
@@ -2704,7 +2706,8 @@ def step_device_profile(fn):
     wall = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not e.name.startswith("Activity Buffer"):
+        if (e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                and not e.name.startswith("Activity Buffer")):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     gloo = {e.key: {"count": e.count, "cpu_ms": e.cpu_time_total / 1e3}

@@ -24,19 +24,23 @@ from ..core import imageio
 from ..core.cameras import write_cam_file
 from ..core.pfm import write_pfm
 from ..data.common import DataLoader
+from ..train.profiler import span
 from ..utils.device import resolve_device
 
 
 class DepthRunner:
-    """``time_dispatch`` sums the forward calls (the host's work and the
-    launches it enqueues), ``time_fetch`` the copies of the outputs to the
-    host (which wait for the device): the split that tells host time from
-    device time."""
+    """``time_dispatch`` sums the forward calls (the inputs' upload, the
+    host's work and the launches it enqueues), ``time_upload`` the upload
+    alone (a part of ``time_dispatch``), ``time_fetch`` the copies of the
+    outputs to the host (which wait for the device): the split that tells
+    host time from device time. Under a profiler a call opens the spans
+    ``runner.upload``, ``runner.forward`` and ``runner.fetch``."""
 
     def __init__(self, model, device=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.time_dispatch = 0.0
+        self.time_upload = 0.0
         self.time_fetch = 0.0
 
     def _tensor(self, a) -> torch.Tensor:
@@ -47,20 +51,25 @@ class DepthRunner:
         depth_values [B, D0] (other keys are ignored)."""
         with torch.inference_mode():
             t0 = time.perf_counter()
-            out = self.model(
-                self._tensor(batch["imgs"]),
-                {k: self._tensor(v) for k, v in batch["proj_matrices"].items()},
-                self._tensor(batch["depth_values"]))
-            keep = {"depth": out["depth"],
-                    "photometric_confidence": out["photometric_confidence"]}
-            for i in range(1, len(self.model.ndepths)):
-                s = f"stage{i}"
-                keep[s] = {"depth": out[s]["depth"],
-                           "photometric_confidence": out[s]["photometric_confidence"]}
+            with span("runner.upload"):
+                imgs = self._tensor(batch["imgs"])
+                proj = {k: self._tensor(v) for k, v in batch["proj_matrices"].items()}
+                depth_values = self._tensor(batch["depth_values"])
             t1 = time.perf_counter()
-            keep = _to_numpy(keep)
-            self.time_dispatch += t1 - t0
-            self.time_fetch += time.perf_counter() - t1
+            with span("runner.forward"):
+                out = self.model(imgs, proj, depth_values)
+                keep = {"depth": out["depth"],
+                        "photometric_confidence": out["photometric_confidence"]}
+                for i in range(1, len(self.model.ndepths)):
+                    s = f"stage{i}"
+                    keep[s] = {"depth": out[s]["depth"],
+                               "photometric_confidence": out[s]["photometric_confidence"]}
+            t2 = time.perf_counter()
+            with span("runner.fetch"):
+                keep = _to_numpy(keep)
+            self.time_upload += t1 - t0
+            self.time_dispatch += t2 - t0
+            self.time_fetch += time.perf_counter() - t2
             return keep
 
 
@@ -150,7 +159,8 @@ def save_scene_depth(runner: DepthRunner, dataset, outdir: str,
                   if len(batch_times) > 1 else total_time / count)
         log_fn(f"inference: {count} views, {steady:.3f}s/view steady "
                f"(first batch {batch_times[0]:.1f}s incl. warm-up; "
-               f"dispatch {runner.time_dispatch:.1f}s, "
+               f"dispatch {runner.time_dispatch:.1f}s "
+               f"(upload {runner.time_upload:.1f}s), "
                f"fetch {runner.time_fetch:.1f}s, "
                f"write {write_time:.1f}s total)")
     return count, total_time, batch_times

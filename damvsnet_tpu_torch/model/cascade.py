@@ -112,6 +112,7 @@ from ..ops.sampling import uncertainty_aware_samples
 from ..ops.warp import matmul_fp32, plane_sweep_warp
 from ..parallel import slab
 from ..parallel.collectives import gather_tokens, sum_backward
+from ..train.profiler import span
 from ..utils.device import resolve_device
 
 STAGE_CHANNELS = (32, 16, 8)  # FPN output channels, stages 1..3
@@ -174,6 +175,10 @@ class CascadeMVSNet(nn.Module):
     device: where the parameters live, CUDA unless the caller names
     another; raises if CUDA is absent. The defaults are the shipped
     configuration.
+
+    Under a profiler the forward opens ``cascade.features`` and, at each
+    stage k, ``cascade.stage{k}.geo_fusion`` (stages 2-3 with geo fusion),
+    ``.samples``, ``.cost_volume``, ``.cost_reg`` and ``.stats``.
     """
 
     def __init__(self, ndepths: Sequence[int] = (64, 32, 8),
@@ -265,7 +270,8 @@ class CascadeMVSNet(nn.Module):
         depth_values = depth_values.float()
         dmin = depth_values.min(dim=1).values[:, None, None, None]
         dmax = depth_values.max(dim=1).values[:, None, None, None]
-        feats = self._view_features(imgs)
+        with span("cascade.features"):
+            feats = self._view_features(imgs)
         if self.use_fmt:
             feats = self.FMT_with_pathway(feats, self.compute_dtype)
 
@@ -275,9 +281,10 @@ class CascadeMVSNet(nn.Module):
             name = f"stage{stage_idx + 1}"
             stage_h, stage_w = height >> (2 - stage_idx), width >> (2 - stage_idx)
             ref_fea, *src_feas = feats[name].unbind(1)
+            part = f"cascade.{name}."
 
-            if stage_idx >= 1:
-                if self.use_geo_fusion:
+            if stage_idx >= 1 and self.use_geo_fusion:
+                with span(part + "geo_fusion"):
                     ref_img = resize_bilinear(imgs[:, 0].float(), (stage_h, stage_w))
                     depth_in = resize_bilinear(depth[..., None],
                                                (depth.shape[1] * 2, depth.shape[2] * 2))
@@ -289,54 +296,59 @@ class CascadeMVSNet(nn.Module):
                         depth_values, stage_idx, ref_fea.permute(0, 3, 1, 2),
                         self.compute_dtype,
                     ).permute(0, 2, 3, 1).contiguous()
-                if self.grad_method == "detach":
-                    depth, sigma = depth.detach(), sigma.detach()
-                cur_depth = resize_bilinear(depth[..., None], (height, width))[..., 0][:, None]
-                cur_var = resize_bilinear(sigma[..., None], (height, width))[..., 0][:, None]
-                samples = uncertainty_aware_samples(cur_depth, cur_var, ndepth,
-                                                    height, width)
-                if self.clamp_samples:
-                    # minimum(maximum()), not clamp: at a tie it passes half
-                    # the gradient, as jnp.clip does
-                    samples = torch.minimum(torch.maximum(samples, dmin), dmax)
-                samples = resize_trilinear_depth(samples, (ndepth, stage_h, stage_w))
-            else:
-                samples = uncertainty_aware_samples(depth_values, None, ndepth,
-                                                    stage_h, stage_w)
+            with span(part + "samples"):
+                if stage_idx >= 1:
+                    if self.grad_method == "detach":
+                        depth, sigma = depth.detach(), sigma.detach()
+                    cur_depth = resize_bilinear(depth[..., None], (height, width))[..., 0][:, None]
+                    cur_var = resize_bilinear(sigma[..., None], (height, width))[..., 0][:, None]
+                    samples = uncertainty_aware_samples(cur_depth, cur_var, ndepth,
+                                                        height, width)
+                    if self.clamp_samples:
+                        # minimum(maximum()), not clamp: at a tie it passes half
+                        # the gradient, as jnp.clip does
+                        samples = torch.minimum(torch.maximum(samples, dmin), dmax)
+                    samples = resize_trilinear_depth(samples, (ndepth, stage_h, stage_w))
+                else:
+                    samples = uncertainty_aware_samples(depth_values, None, ndepth,
+                                                        stage_h, stage_w)
+                fused = fuse_projection_matrices(proj_matrices[name])
 
-            # the views' features share one dtype; geo fusion's reference,
-            # in the compute dtype, is upcast to theirs where they are fp32
-            ref_fea = ref_fea.to(src_feas[0].dtype)
-            fused = fuse_projection_matrices(proj_matrices[name])
-            group, local, bn_scope = self.slab_group, samples, contextlib.nullcontext()
-            if group is not None:  # this rank's slab of the hypotheses
-                # a view: a [B, D, h, w] sweep expanded from [B, D] stays
-                # stride 0; detached, as every volume route detaches them
-                local = samples.detach().chunk(dist.get_world_size(group), 1)[
-                    dist.get_rank(group)]
-                ref_fea = sum_backward(ref_fea, group)
-                src_feas = [sum_backward(f, group) for f in src_feas]
-                bn_scope = batch_stats_group(self.slab_stats_group)
-            with bn_scope:
-                volume = self._cost_volume(stage_idx, ref_fea, src_feas, fused[:, 0],
-                                           [fused[:, v] for v in range(1, n)], local)
-            volume = volume.permute(0, 4, 1, 2, 3).to(self.compute_dtype)
-            if self.reg_mode == "georeg" and group is not None:
-                volume = gather_tokens(volume, 2, group)
-            if self.reg_mode == "georeg":
-                prob_last = None
-                if stage_idx >= 1:  # the previous probability volume, upsampled x2
-                    prob_last = F.interpolate(prob_volume, size=(stage_h, stage_w),
-                                              mode="bilinear", align_corners=False)
-                cost = self.cost_regularization[stage_idx](volume, stage_idx, prob_last)
-            else:
-                cost = self.cost_regularization[stage_idx](volume)[:, 0]
-                if group is not None:
-                    cost = gather_tokens(cost, 1, group)
-            out = stats(cost, samples)
-            out["depth_values"] = samples
-            depth, sigma, prob_volume = out["depth"], out["variance"], out["prob_volume"]
-            outputs[name] = out
+            with span(part + "cost_volume"):
+                # the views' features share one dtype; geo fusion's reference,
+                # in the compute dtype, is upcast to theirs where they are fp32
+                ref_fea = ref_fea.to(src_feas[0].dtype)
+                group, local, bn_scope = self.slab_group, samples, contextlib.nullcontext()
+                if group is not None:  # this rank's slab of the hypotheses
+                    # a view: a [B, D, h, w] sweep expanded from [B, D] stays
+                    # stride 0; detached, as every volume route detaches them
+                    local = samples.detach().chunk(dist.get_world_size(group), 1)[
+                        dist.get_rank(group)]
+                    ref_fea = sum_backward(ref_fea, group)
+                    src_feas = [sum_backward(f, group) for f in src_feas]
+                    bn_scope = batch_stats_group(self.slab_stats_group)
+                with bn_scope:
+                    volume = self._cost_volume(stage_idx, ref_fea, src_feas, fused[:, 0],
+                                               [fused[:, v] for v in range(1, n)], local)
+                volume = volume.permute(0, 4, 1, 2, 3).to(self.compute_dtype)
+            with span(part + "cost_reg"):
+                if self.reg_mode == "georeg" and group is not None:
+                    volume = gather_tokens(volume, 2, group)
+                if self.reg_mode == "georeg":
+                    prob_last = None
+                    if stage_idx >= 1:  # the previous probability volume, upsampled x2
+                        prob_last = F.interpolate(prob_volume, size=(stage_h, stage_w),
+                                                  mode="bilinear", align_corners=False)
+                    cost = self.cost_regularization[stage_idx](volume, stage_idx, prob_last)
+                else:
+                    cost = self.cost_regularization[stage_idx](volume)[:, 0]
+                    if group is not None:
+                        cost = gather_tokens(cost, 1, group)
+            with span(part + "stats"):
+                out = stats(cost, samples)
+                out["depth_values"] = samples
+                depth, sigma, prob_volume = out["depth"], out["variance"], out["prob_volume"]
+                outputs[name] = out
         outputs.update(outputs["stage3"])
         if self.refine:
             outputs["refined_depth"] = self.refine_network(imgs[:, 0].float(), depth,

@@ -49,6 +49,7 @@ from ..nn.blocks import batch_stats_group
 from ..utils.device import resolve_device
 from .logging import SummaryWriter
 from .metrics import DictAverageMeter, abs_depth_error_metrics, thres_metrics
+from .profiler import span
 from .state import Checkpointer, TrainState
 
 _MODEL_KEYS = ("imgs", "proj_matrices", "depth_values", "depth", "mask")
@@ -152,7 +153,11 @@ def make_train_step(dlossw=(0.5, 1.0, 2.0), use_cpc: bool = True,
     global batch and the step is the global batch's (see the module's
     docstring); DDP's gradient all-reduce runs with the last microbatch's
     backward only (``no_sync`` before). With a slab group, the slab shares
-    are summed over it after the last backward."""
+    are summed over it after the last backward.
+
+    Under a profiler each microbatch opens ``loop.forward``, ``loop.loss``
+    and ``loop.backward`` (the slab sum in the last one's), and the step
+    ``loop.optimizer`` and ``loop.metrics``."""
     dev = resolve_device(device)
     group = _data_group(mesh)
     world = _world(group)
@@ -190,28 +195,33 @@ def make_train_step(dlossw=(0.5, 1.0, 2.0), use_cpc: bool = True,
             last = j == len(micro) - 1
             sync = contextlib.nullcontext() if group is None or last else net.no_sync()
             with sync, batch_stats_group(group):
-                outputs = _forward(net, mb)
-                # world x this rank's share: DDP's gradient average and the
-                # metrics' mean over the ranks are then the global loss's
-                total, depth_loss, cpc = (world * x for x in cas_mvsnet_loss(
-                    outputs, mb["imgs"], mb["proj_matrices"], mb["depth"], mb["mask"],
-                    dlossw=dlossw, use_cpc=use_cpc, group=group))
-                (total / len(micro)).backward()
-            total_sum = total_sum + total.detach()
+                with span("loop.forward"):
+                    outputs = _forward(net, mb)
+                with span("loop.loss"):
+                    # world x this rank's share: DDP's gradient average and the
+                    # metrics' mean over the ranks are then the global loss's
+                    total, depth_loss, cpc = (world * x for x in cas_mvsnet_loss(
+                        outputs, mb["imgs"], mb["proj_matrices"], mb["depth"], mb["mask"],
+                        dlossw=dlossw, use_cpc=use_cpc, group=group))
+                    total_sum = total_sum + total.detach()
+                with span("loop.backward"):
+                    (total / len(micro)).backward()
+                    if last and model.slab_group is not None:
+                        sum_slab_shares(model)
             depths.append(outputs["depth"].detach())
             if j == 0:
-                images = _first_sample_images(outputs, mb)
-        if model.slab_group is not None:
-            sum_slab_shares(model)
-        state.optimizer.step()
-        if state.scheduler is not None:
-            state.scheduler.step()
+                first = ({k: outputs[k] for k in ("depth", "photometric_confidence")}, mb)
+        with span("loop.optimizer"):
+            state.optimizer.step()
+            if state.scheduler is not None:
+                state.scheduler.step()
         state.step += 1
-        metrics = {"loss": total_sum / len(micro), "depth_loss": depth_loss.detach(),
-                   "cpc_loss": torch.as_tensor(cpc).detach()}
-        metrics.update(_depth_metrics(torch.cat(depths), batch))
-        metrics = _group_mean(metrics, group)
-        metrics["_images"] = images
+        with span("loop.metrics"):
+            metrics = {"loss": total_sum / len(micro), "depth_loss": depth_loss.detach(),
+                       "cpc_loss": torch.as_tensor(cpc).detach()}
+            metrics.update(_depth_metrics(torch.cat(depths), batch))
+            metrics = _group_mean(metrics, group)
+            metrics["_images"] = _first_sample_images(*first)
         return metrics
 
     return train_step

@@ -1,25 +1,35 @@
 """Profiling hooks; counterpart of damvsnet_tpu/train/profiler.py (the
-reference's vestigial torch profiler mode, train.py:344-372, and its
-per-iteration wall timing).
+reference's vestigial torch profiler mode, train.py:344-372).
 
 Usage:
     with trace_steps("/tmp/trace"):
         metrics = train_step(state, batch)
 
-or the step timer:
-    timer = StepTimer()
-    with timer:
-        ...
-    print(timer.summary())
+The port's layers open named spans (``span``): ``runner.*`` in
+``DepthRunner``, ``cascade.*`` in ``CascadeMVSNet.forward``, ``loop.*`` in
+the train step. Under a running profiler each is a ``record_function``
+range on the trace's one timeline; with none running it costs the read of
+one flag.
 """
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 
 import torch
+import torch.autograd.profiler as autograd_profiler
 import torch.distributed as dist
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler runs; otherwise one shared no-op context (an idle
+    ``record_function`` still pays for its enter and exit)."""
+    if autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def trace_path(logdir: str) -> str:
@@ -44,30 +54,3 @@ def trace_steps(logdir: str):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(trace_path(logdir))
-
-
-class StepTimer:
-    """Wall-clock per-step timing with running stats."""
-
-    def __init__(self):
-        self.times = []
-        self._t0 = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.times.append(time.perf_counter() - self._t0)
-        return False
-
-    def summary(self, skip_warmup: int = 1) -> dict:
-        ts = self.times[skip_warmup:] or self.times
-        if not ts:
-            return {}
-        return {
-            "steps": len(ts),
-            "mean_s": sum(ts) / len(ts),
-            "min_s": min(ts),
-            "max_s": max(ts),
-        }

@@ -28,9 +28,11 @@ undetached handoff). ``--variant georeg``: serving with GeoRegNet2d,
 RefineNet and the U-Net FeatureNet, those seeded (phase 16).
 
 Prints device time per kernel family, the top kernels and the slowest
-convolutions with their input shapes, the device's busy and idle share of
-the profiled wall time, and one JSON line. ``--trace PATH`` writes the
-Chrome trace there.
+convolutions with their input shapes, the device's busy time (the union
+of its activities' intervals) and idle share of the profiled wall time,
+the port's spans (``benchmark/spans.py``: device ms, launches, idle ms and
+calls a request or step, each span's children included), and one JSON
+line. ``--trace PATH`` writes the Chrome trace there, the spans in it.
 
 ``--cudnn-benchmark`` is a diagnostic, not a serving setting: it lets cuDNN
 time its algorithms per shape during the warm-up
@@ -48,37 +50,10 @@ from collections import defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from benchmark import spans  # noqa: E402
+from benchmark.yardstick import family, union_length  # noqa: E402
+
 REPEATS = 3
-# kernel-name substrings -> family, first match wins
-FAMILIES = (
-    ("K1 fused cost volume", ("fused_costvol_kernel",)),
-    ("K3 fused cost volume backward", ("fused_costvol_bwd_kernel",)),
-    ("K2 prob stats", ("probstats_kernel",)),
-    ("K4 plane-sweep sampler", ("sweep_sampler_kernel",)),
-    ("K4 variance cost volume", ("sweep_variance_kernel",)),
-    ("optimizer (Adam)", ("multi_tensor", "adam")),
-    # cuDNN's BN kernels (bn_fw/bn_bw, batchnorm_*) before "cudnn" below
-    ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "welford")),
-    ("convolution", ("conv", "xmma", "gemm", "cudnn", "cutlass", "dgrad", "wgrad",
-                     "implicit", "winograd", "sm90", "fft")),
-    ("resize", ("upsample", "interp")),
-    ("layer norm", ("layer_norm",)),
-    ("pooling", ("pool",)),
-    # the plain warp's gather and, in its backward, index_put's sort and
-    # accumulate (non-fused training)
-    ("gather / scatter", ("index", "scatter", "gather", "radix", "sort")),
-    ("reduction", ("reduce", "softmax", "min_max")),
-    ("copy / layout", ("copy", "memcpy", "memset", "cat", "fill")),
-    ("elementwise", ("elementwise", "vectorized", "unrolled")),
-)
-
-
-def family(name: str) -> str:
-    low = name.lower()
-    for fam, keys in FAMILIES:
-        if any(k in low for k in keys):
-            return fam
-    return "other"
 
 
 # --variant: the CascadeMVSNet fields, and the modules that start from the
@@ -155,17 +130,22 @@ def training_step(fused=True, agg_mode="adaptive", variant=None):
 
 
 def device_activities(prof):
-    """{kernel name: [device ms, count]} of a profile's device activities
-    (kernels, memcpys, memsets): operator rows of key_averages() repeat
-    their kernels' time."""
+    """({kernel name: [device ms, count]}, busy ms) of a profile's device
+    activities (kernels, memcpys, memsets; not the device-side copies of
+    the port's spans, which are annotations): operator rows of
+    key_averages() repeat their kernels' time. Busy is the union of their
+    intervals, so activities that overlap on streams count once."""
     from torch.autograd import DeviceType
     per_kernel = defaultdict(lambda: [0.0, 0])
+    intervals = []
     for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA or evt.name.startswith("Activity Buffer"):
+        if (evt.device_type != DeviceType.CUDA or evt.is_user_annotation
+                or evt.name.startswith("Activity Buffer")):
             continue
         per_kernel[evt.name][0] += evt.time_range.elapsed_us() / 1e3
         per_kernel[evt.name][1] += 1
-    return per_kernel
+        intervals.append((evt.time_range.start, evt.time_range.end))
+    return per_kernel, union_length(intervals) / 1e3
 
 
 def print_families(per_kernel, unit, top):
@@ -215,12 +195,14 @@ def main():
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    per_kernel = device_activities(prof)
+    per_kernel, busy_ms = device_activities(prof)
     print(f"card: {smi}")
-    busy_ms = sum(ms for ms, _ in per_kernel.values())
     print(f"{REPEATS} {unit}s: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.4f}")
     per_family, _ = print_families(per_kernel, unit, 25)
+    per_span = spans.reduce(prof)
+    print(f"the port's spans (per {unit}):")
+    print(spans.table(per_span, REPEATS))
     print(f"slowest convolutions by input shapes (ms per {unit}, calls per {unit}):")
     convs = [e for e in prof.key_averages(group_by_input_shape=True)
              if e.key.startswith("aten::cudnn_convolution")]
@@ -234,7 +216,7 @@ def main():
             for _ in range(REPEATS):
                 fn()
             torch.cuda.synchronize()
-        part_kernels = device_activities(part)
+        part_kernels, _ = device_activities(part)
         parts_ms[name] = sum(ms for ms, _ in part_kernels.values()) / REPEATS
         print(f"{name} alone: {parts_ms[name]:.3f} device ms per call, "
               f"{sum(n for _, n in part_kernels.values()) / REPEATS:.0f} device activities")
@@ -254,7 +236,7 @@ def main():
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "cudnn_benchmark": torch.backends.cudnn.benchmark,
         f"device_activities_per_{unit}": sum(n for _, n in per_kernel.values()) / REPEATS,
-        "parts_device_ms": parts_ms}))
+        "parts_device_ms": parts_ms, **per_span}))
     return 0
 
 

@@ -1,6 +1,6 @@
 """The port's training tooling against the JAX package's on the CPU: the
 event writer (``train/logging.py``), the visualizations
-(``utils/visualize.py``), the step timer and the torch.profiler trace
+(``utils/visualize.py``), the torch.profiler trace
 (``train/profiler.py``), the Trainer's summaries and the training CLI's
 ``--profile_dir``."""
 import ast
@@ -16,7 +16,6 @@ import pytest
 import torch
 
 from damvsnet_tpu.train import logging as jlogging
-from damvsnet_tpu.train.profiler import StepTimer as JStepTimer
 from damvsnet_tpu.utils import visualize as jviz
 from damvsnet_tpu_torch import data as port_data
 from damvsnet_tpu_torch.cli import train as cli_train
@@ -25,7 +24,7 @@ from damvsnet_tpu_torch.data import DataLoader, SyntheticDataset
 from damvsnet_tpu_torch.model import CascadeMVSNet
 from damvsnet_tpu_torch.train import logging as plogging
 from damvsnet_tpu_torch.train.loop import Trainer, make_train_step
-from damvsnet_tpu_torch.train.profiler import StepTimer, trace_path, trace_steps
+from damvsnet_tpu_torch.train.profiler import trace_path, trace_steps
 from damvsnet_tpu_torch.train.schedule import make_optimizer
 from damvsnet_tpu_torch.train.state import TrainState
 from damvsnet_tpu_torch.utils import visualize as pviz
@@ -188,17 +187,6 @@ def test_exported_files_equal_jax(tmp_path):
         str(p.relative_to(tmp_path / "jax")) for p in (tmp_path / "jax").rglob("*.png"))
     for f in files:
         assert (tmp_path / "port" / f).read_bytes() == (tmp_path / "jax" / f).read_bytes(), f
-
-
-@pytest.mark.parametrize("skip", [0, 1, 3])
-def test_step_timer_summary_equals_jax(skip):
-    times = [0.9, 0.25, 0.31, 0.27]
-    ours, theirs = StepTimer(), JStepTimer()
-    ours.times, theirs.times = list(times), list(times)
-    assert ours.summary(skip) == theirs.summary(skip)
-    with ours:
-        pass
-    assert len(ours.times) == 5 and ours.times[-1] >= 0
 
 
 def test_trace_steps_writes_a_trace(tmp_path):
