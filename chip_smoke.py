@@ -20,6 +20,12 @@ without printing its result line:
   4. K2, the probability-volume statistics, likewise, on an fp32 cost and
      on a bf16 cost (the bf16 cascade hands K2 the regularizer's bf16
      output, which the kernel reads as it is);
+  4b. K5, CostRegNet's Cout=1 prob conv, at each serving stage's shape
+     with its trained weight on a channels_last_3d volume, fp32 (TF32 off)
+     and bf16, against F.conv3d in fp32; in bf16 timed beside its plain
+     version (the library convolution, cuDNN as the port ran it), cuDNN
+     with ``cudnn.benchmark``, and cuDNN on the weight zero-padded to 8 and
+     16 output channels;
   5. the serving cascade (1152x864, N=5, ndepths 64/32/8, bf16, the
      trained weights of weights/bench_ckpt.npz) answering 3 requests
      through DepthRunner, with every launch counter set to 0 just before
@@ -371,6 +377,16 @@ CLI_TRAIN_H, CLI_TRAIN_W, CLI_TRAIN_SAMPLES = 128, 160, 8
 SCAN_SCENES = ["scan_a", "scan_b"]
 # the step's image summaries, the JAX step's keys
 IMAGE_KEYS = ("depth_est", "depth_gt", "ref_img", "mask", "errormap", "photometric_confidence")
+# K5, CostRegNet's prob conv (Conv3d(8, 1, 3)), against F.conv3d of the
+# rounded weight in fp32: both sum 216 fp32 products in other orders, 1e-5
+# of the output's largest entry; bf16 adds one bf16 step of the reference
+# (the kernel rounds once; the reordering can cross a rounding boundary)
+PROB_CHANNELS, PROB_KERNEL = 8, "prob_conv3d_kernel"
+PROB_TOL = 1e-5
+# the library convolution with the weight zero-padded to these output
+# channels (channels_last_3d, cudnn.benchmark), timed beside K5: alone, and
+# with the slice of channel 0 made contiguous, as K2 reads it
+PROB_PADDED_COUT = (8, 16)
 # name keys of the kernels in profiler traces; the template argument after
 # the dtype is C, which names the stage (C = 32 / 16 / 8 at stages 1 / 2 / 3)
 K1_KERNEL, K2_KERNEL, K3_KERNEL, K4_KERNEL, K4_VARIANCE_KERNEL = (
@@ -588,6 +604,73 @@ def phase_k2(sample, dev):
     return rows
 
 
+def prob_conv_bound_ms(b, d, h, w, elem):
+    """K5: the 8-channel volume read once and the output written once in
+    the compute dtype; 216 fp32 FMAs (432 operations) an output voxel."""
+    n = b * d * h * w
+    bytes_ = n * (PROB_CHANNELS + 1) * elem + PROB_CHANNELS * 27 * elem
+    ops = n * PROB_CHANNELS * 27 * 2
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_prob_conv(model, dev):
+    """K5, CostRegNet's Cout=1 prob conv, at each serving stage's shape
+    with that stage's trained weight, on a channels_last_3d volume (the
+    U-Net's layout), fp32 (TF32 off) and bf16, against F.conv3d of the
+    weight rounded to the dtype, in fp32, at PROB_TOL; in bf16 timed beside
+    the plain version (conv(), cuDNN as the port ran it), cuDNN with
+    ``cudnn.benchmark`` (its timed choice of algorithm), and cuDNN on the
+    weight zero-padded to PROB_PADDED_COUT output channels."""
+    import torch
+    import torch.nn.functional as F
+    from damvsnet_tpu_torch.nn.blocks import conv
+    from damvsnet_tpu_torch.ops.kernels.prob_conv import prob_conv3d
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+    for stage_idx in range(3):
+        h, w = HEIGHT >> (2 - stage_idx), WIDTH >> (2 - stage_idx)
+        d = NDEPTHS[stage_idx]
+        m = model.cost_regularization[stage_idx].prob
+        x32 = torch.randn(1, d, h, w, PROB_CHANNELS, generator=gen,
+                          device=dev).permute(0, 4, 1, 2, 3)
+        for tag, x in (("fp32", x32), ("bf16", x32.bfloat16())):
+            got = prob_conv3d(x, m)
+            torch.cuda.synchronize()
+            want = F.conv3d(x.float(), m.weight.to(x.dtype).float(), padding=1)
+            err = (got.float() - want).abs()
+            tol = PROB_TOL * want.abs().max()
+            if tag == "bf16":  # one bf16 step at |want|
+                tol = tol + torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+            row = {"stage": stage_idx + 1, "dtype": tag, "shape": list(x.shape),
+                   "channels_last_3d": x.is_contiguous(memory_format=torch.channels_last_3d),
+                   "max_abs": float(err.max()), "max_rel_to_max": float(err.max() /
+                                                                         want.abs().max())}
+            check(bool((err <= tol).all()), f"K5 stage {stage_idx + 1} {tag}: "
+                  f"max |err| {row['max_abs']} past its limit")
+            if tag == "bf16":  # the serving dtype: the kernel table's times
+                row["ms"] = cuda_ms(lambda: prob_conv3d(x, m), 50)
+                row["kernel_ms"] = device_ms(lambda: prob_conv3d(x, m), PROB_KERNEL)
+                row["plain_ms"] = cuda_ms(lambda: conv(x, m), 20)
+                torch.backends.cudnn.benchmark = True
+                try:
+                    row["library_ms"] = cuda_ms(lambda: conv(x, m), 20, warmup=3)
+                    for cout in PROB_PADDED_COUT:  # the one-route alternative
+                        wp = torch.zeros((cout, *m.weight.shape[1:]), dtype=x.dtype, device=dev)
+                        wp[:1] = m.weight.to(x.dtype)
+                        wp = wp.contiguous(memory_format=torch.channels_last_3d)
+                        row[f"pad{cout}_ms"] = cuda_ms(
+                            lambda: F.conv3d(x, wp, padding=1), 20, warmup=3)
+                        row[f"pad{cout}_route_ms"] = cuda_ms(
+                            lambda: F.conv3d(x, wp, padding=1)[:, 0].contiguous(), 20, warmup=3)
+                finally:
+                    torch.backends.cudnn.benchmark = False
+                row["bound_ms"], row["bound_by"] = prob_conv_bound_ms(1, d, h, w, 2)
+            print("K5", json.dumps(row), flush=True)
+            rows.append(row)
+    return rows
+
+
 def many_view_features(model, dev):
     """A synthetic scene of MANY_VIEWS + 1 views at MANY_H x MANY_W: per
     stage the fused projections (reference, sources), a uniform sweep of
@@ -703,13 +786,14 @@ def bf16_floor(runner, model, batch):
 
 
 def kernel_counters():
-    """Every kernel wrapper, K1-K4 (K4's sampler and variance entries): each
+    """Every kernel wrapper, K1-K5 (K4's sampler and variance entries): each
     path sets all of their launch counters to 0 just before it runs and
     reads all of them just after."""
-    from damvsnet_tpu_torch.ops.kernels import fused_costvol, probstats, sweep_sampler
+    from damvsnet_tpu_torch.ops.kernels import fused_costvol, prob_conv, probstats, sweep_sampler
     return (fused_costvol.fused_adaptive_cost_volume, probstats.prob_volume_stats_fused,
             fused_costvol.fused_adaptive_cost_volume_backward,
-            sweep_sampler.plane_sweep_sample, sweep_sampler.plane_sweep_variance)
+            sweep_sampler.plane_sweep_sample, sweep_sampler.plane_sweep_variance,
+            prob_conv.prob_conv3d)
 
 
 def reset_counters():
@@ -765,7 +849,8 @@ def phase_cascade(sample, model, dev):
                                  "peak_mem_gib": peak_gib, "launches": launches}),
           flush=True)
     check_launches("cascade", launches, {"fused_adaptive_cost_volume": 3,
-                                         "prob_volume_stats_fused": 3}, REQUESTS)
+                                         "prob_volume_stats_fused": 3, "prob_conv3d": 3},
+                   REQUESTS)
     depth = out["depth"]
     check(depth.shape == (1, HEIGHT, WIDTH), f"depth shape {depth.shape}")
     check(bool(np.isfinite(depth).all()), "non-finite depth")
@@ -1292,7 +1377,8 @@ def phase_variance(sample, model, dev):
                                           "peak_mem_gib": peak_gib, "launches": launches}),
           flush=True)
     check_launches("variance cascade", launches, {"prob_volume_stats_fused": 3,
-                                                  "plane_sweep_variance": 3},
+                                                  "plane_sweep_variance": 3,
+                                                  "prob_conv3d": 3},
                    REQUESTS)
     depth = out["depth"]
     check(depth.shape == (1, HEIGHT, WIDTH), f"variance depth shape {depth.shape}")
@@ -1515,7 +1601,8 @@ def phase_test_cli(dev):
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         print(log.getvalue(), end="", flush=True)
         check_launches("test CLI", launches, {"fused_adaptive_cost_volume": 3,
-                                              "prob_volume_stats_fused": 3}, EVAL_VIEWS)
+                                              "prob_volume_stats_fused": 3,
+                                              "prob_conv3d": 3}, EVAL_VIEWS)
         check(runner.model.compute_dtype == torch.bfloat16, "the test CLI did not serve in bf16")
         check(seen == [torch.device(dev).type] * EVAL_VIEWS,
               f"the consistency passes ran on {seen}")
@@ -1623,7 +1710,8 @@ def phase_tnt_recipe(dev):
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         print(log.getvalue(), end="", flush=True)
         check_launches("TnT recipe", launches, {"fused_adaptive_cost_volume": 3,
-                                                "prob_volume_stats_fused": 3}, TNT_VIEWS)
+                                                "prob_volume_stats_fused": 3,
+                                                "prob_conv3d": 3}, TNT_VIEWS)
         model = runner.model
         check(model.compute_dtype == torch.bfloat16, "the TnT recipe did not serve in bf16")
         check(seen == [torch.device(dev).type] * TNT_VIEWS, f"the consistency passes ran on {seen}")
@@ -1709,7 +1797,8 @@ def phase_accuracy_chain():
                   if " iter " not in line), end="", flush=True)
     views = report["inference"]["views"]
     check_launches("accuracy chain", launches, {"fused_adaptive_cost_volume": 3,
-                                                "prob_volume_stats_fused": 3}, views)
+                                                "prob_volume_stats_fused": 3,
+                                                "prob_conv3d": 3}, views)
     curve = [e["loss"] for e in report["train_curve"]]
     check(len(curve) == 2 and curve[1] <= CHAIN_LOSS_DROP * curve[0],
           f"accuracy chain: epoch losses {curve}, the second above {CHAIN_LOSS_DROP} x the first")
@@ -1775,7 +1864,8 @@ def phase_fmt_serving(sample, dev):
     runner = DepthRunner(model, device=dev)
     warm_ms, times, out, launches, peak_gib = timed_requests(runner, batch)
     check_launches("FMT cascade", launches, {"fused_adaptive_cost_volume": 3,
-                                             "prob_volume_stats_fused": 3}, REQUESTS)
+                                             "prob_volume_stats_fused": 3,
+                                             "prob_conv3d": 3}, REQUESTS)
     depth = out["depth"]
     check(depth.shape == (1, HEIGHT, WIDTH), f"FMT depth shape {depth.shape}")
     check(bool(np.isfinite(depth).all()), "non-finite FMT depth")
@@ -3020,7 +3110,8 @@ def phase_scan_parallel(dev, smi, workdir, tol):
           f"scene ownership {owned}")
     for r in ranks:
         check_launches(f"scan-parallel CLI rank {r['rank']}", r["launches"],
-                       {"fused_adaptive_cost_volume": 3, "prob_volume_stats_fused": 3},
+                       {"fused_adaptive_cost_volume": 3, "prob_volume_stats_fused": 3,
+                        "prob_conv3d": 3},
                        EVAL_VIEWS * len(r["scenes"]))
     with numpy_image_codec(), contextlib.redirect_stdout(io.StringIO()):
         cli_test_main(scan_cli_argv(datapath, os.path.join(workdir, "scan_list.txt"),
@@ -3066,7 +3157,8 @@ def phase_fmt_sp(sample, dev, smi, workdir, fmt_tol):
     ranks = spawn_ranks("fmt_sp", workdir)
     for r in ranks:
         check_launches(f"FMT sequence-parallel rank {r['rank']}", r["launches"],
-                       {"fused_adaptive_cost_volume": 3, "prob_volume_stats_fused": 3},
+                       {"fused_adaptive_cost_volume": 3, "prob_volume_stats_fused": 3,
+                        "prob_conv3d": 3},
                        REQUESTS)
     got = np.load(os.path.join(workdir, "fmt_sp_depth.npz"))
     parity = {}
@@ -3131,6 +3223,7 @@ def main():
     with torch.inference_mode():
         k1 = phase_k1(sample, model, dev)
         k2 = phase_k2(sample, dev)
+        k5 = phase_prob_conv(model, dev)
     phase_k1_many_views(model, dev)
     torch.cuda.empty_cache()
     launches, request_ms = phase_cascade(sample, model, dev)
@@ -3236,6 +3329,10 @@ def main():
                 "damvsnet_tpu/ops/pallas/sweep_sampler.py:304 + "
                 "damvsnet_tpu/ops/costvol.py:63-77",
                 "plane_sweep_variance"),
+        summary("prob_conv3d", k5,
+                "damvsnet_tpu_torch/ops/kernels/csrc/prob_conv.cu",
+                "none: the JAX package leaves CostRegNet's prob conv to XLA",
+                "prob_conv3d"),
     ]
     print(f"cascade: {request_ms:.3f} ms per request (bf16, {smi})", flush=True)
     print(f"training: {step_ms:.3f} ms per step, peak {train_peak:.2f} GiB "

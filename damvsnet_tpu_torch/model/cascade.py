@@ -341,7 +341,7 @@ class CascadeMVSNet(nn.Module):
                                                   mode="bilinear", align_corners=False)
                     cost = self.cost_regularization[stage_idx](volume, stage_idx, prob_last)
                 else:
-                    cost = self.cost_regularization[stage_idx](volume)[:, 0]
+                    cost = self.cost_regularization[stage_idx](volume, self.plain)[:, 0]
                     if group is not None:
                         cost = gather_tokens(cost, 1, group)
             with span(part + "stats"):

@@ -9,7 +9,12 @@ in JAX. Names follow the reference state_dict: conv0..conv6,
 conv7/conv9/conv11 (decoders), prob.
 
 Layout: [B, C, D, H, W]; the fused cost volume arrives as a
-``channels_last_3d`` view.
+``channels_last_3d`` view. Where no gradient is needed (serving, the test
+CLI, validation) and the U-Net is 8 channels wide there (``cr_base_chs``'s
+default), the final ``prob`` conv runs as the hand-written kernel
+``ops/kernels/prob_conv.py::prob_conv3d``, which reads that layout as it
+is; under autograd, at other widths and with ``plain``, it stays the
+library convolution.
 
 ``CostRegNet(slab_group=...)``: the depth-slab axis (JAX's ``slab_axis``):
 each rank of the group holds one slab of the volume's D axis and every
@@ -21,8 +26,10 @@ not slabbed, as in JAX.
 """
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 
+from ..ops.kernels import prob_conv
 from ..parallel import slab
 from .blocks import Conv3dBlock, Deconv3dBlock, conv
 
@@ -51,10 +58,11 @@ class CostRegNet(nn.Module):
         self.conv11 = Deconv3dBlock(2 * c, c, 3, 2, 1, output_padding=1)
         self.prob = nn.Conv3d(c, 1, 3, padding=1, bias=False)
 
-    def forward(self, x):
+    def forward(self, x, plain: bool = False):
         """[B, C, D, H, W] -> [B, 1, D, H, W] regularized cost (with a slab
-        group: this rank's slabs of both)."""
-        run = self._runner(x.shape[2])
+        group: this rank's slabs of both). plain: the library convolution
+        for ``prob`` wherever it runs (the cascade's ``plain``)."""
+        run = self._runner(x.shape[2], plain)
         conv0 = run("conv0", x)
         conv2 = run("conv2", run("conv1", conv0))
         conv4 = run("conv4", run("conv3", conv2))
@@ -64,12 +72,13 @@ class CostRegNet(nn.Module):
         x = conv0 + run("conv11", x)
         return run("prob", x)
 
-    def _runner(self, depth):
+    def _runner(self, depth, plain):
         """run(name, x): the named block on x; with a slab group, on this
         rank's slabs of a volume of ``depth`` planes a rank, or whole where
         its level does not divide (``slab.run_block``)."""
         if self.slab_group is None:
-            return lambda name, x: conv(x, self.prob) if name == "prob" else getattr(self, name)(x)
+            return lambda name, x: (self._prob(x, plain) if name == "prob"
+                                    else getattr(self, name)(x))
         slabs = slab.level_slabs(depth, self.slab_group)
 
         def run(name, x):
@@ -77,6 +86,16 @@ class CostRegNet(nn.Module):
             return slab.run_block(getattr(self, name), x, slabs[a], slabs[b], self.slab_group,
                                   self.slab_stats_group)
         return run
+
+    def _prob(self, x, plain):
+        """The ``prob`` conv: the kernel where it applies (the width it is
+        built for) unless a gradient is needed (it has no backward) or
+        ``plain``."""
+        if (plain or self.prob.in_channels != prob_conv.CHANNELS
+                or (torch.is_grad_enabled()
+                    and (x.requires_grad or self.prob.weight.requires_grad))):
+            return conv(x, self.prob)
+        return prob_conv.prob_conv3d(x, self.prob)
 
 
 class Reg2d(nn.Module):

@@ -6,7 +6,8 @@
 Each tree (a checkout of the repository; default the one this script is
 in) runs in a process of its own, in the order given, so listing a parent
 tree around this one (parent / this / this / parent) compares two commits
-on the same card. The kernels are built in each tree first. Phases: 5 (the
+on the same card. The kernels are built in each tree first. Phases: 4b
+(K5, CostRegNet's prob conv, against F.conv3d, timed beside cuDNN), 5 (the
 adaptive serving cascade), 7 (the fused training step), 13 (the test CLI
 on a synthetic DTU-layout scene), 14 (FMT serving),
 15 (FMT training, undetached), 16 (GeoReg / refine / U-Net serving), and
@@ -49,7 +50,13 @@ sample = make_synthetic_sample(height=c.HEIGHT, width=c.WIDTH, nviews=c.NVIEWS,
 smi, fmt = c.nvidia_smi(), None
 workdir = tempfile.TemporaryDirectory()
 for phase in sys.argv[1:]:
-    if phase == "5":
+    if phase == "4b":
+        model = CascadeMVSNet(ndepths=c.NDEPTHS, compute_dtype=torch.bfloat16, device=dev)
+        load_bench_weights(model, c.SERVING_WEIGHTS)
+        with torch.inference_mode():
+            c.phase_prob_conv(model, dev)
+        del model
+    elif phase == "5":
         model = CascadeMVSNet(ndepths=c.NDEPTHS, compute_dtype=torch.bfloat16, device=dev)
         load_bench_weights(model, c.SERVING_WEIGHTS)
         c.phase_cascade(sample, model, dev)
@@ -94,7 +101,7 @@ workdir.cleanup()
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("phases", nargs="+",
-                    choices=["5", "7", "13", "14", "15", "16", "17", "18", "19", "20", "21",
+                    choices=["4b", "5", "7", "13", "14", "15", "16", "17", "18", "19", "20", "21",
                              "22", "23", "24", "25"])
     ap.add_argument("--trees", nargs="+", default=[REPO])
     args = ap.parse_args()

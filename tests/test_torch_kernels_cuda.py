@@ -12,11 +12,15 @@ with smooth features). In bf16 both sum in fp32 and round once, so they
 differ by at most one bf16 step (2^-7 relative) where the fp32 sums straddle
 a rounding boundary.
 """
+import types
+
 import pytest
 import torch
+import torch.nn.functional as F
 
+from damvsnet_tpu_torch.nn import costreg
 from damvsnet_tpu_torch.ops.costvol import variance_cost_volume
-from damvsnet_tpu_torch.ops.kernels import _common, fused_costvol, probstats
+from damvsnet_tpu_torch.ops.kernels import _common, fused_costvol, prob_conv, probstats
 from damvsnet_tpu_torch.ops.kernels.sweep_sampler import plane_sweep_sample, plane_sweep_variance
 from damvsnet_tpu_torch.ops.regression import prob_volume_stats
 from damvsnet_tpu_torch.ops.warp import plane_sweep_grid, plane_sweep_warp
@@ -556,3 +560,134 @@ def test_probstats_bf16_cost_any_depth_count(dev, d, per_pixel):
     assert bool(gc[1, 3, 7].isnan()) and bool(wc[1, 3, 7].isnan())
     flips = (gc - wc).abs() > 1e-5
     assert int(flips.sum()) <= 2
+
+
+# K5, CostRegNet's Cout=1 prob conv, against F.conv3d of the same weight
+# rounded to the input's dtype, computed in fp32 (TF32 off). fp32: both sum
+# the 216 products in fp32, in other orders: 1e-5 of the output's largest
+# entry. bf16: the kernel sums in fp32 and rounds once (half a bf16 step);
+# its fp32 sum differs from the reference's by that reordering, which can
+# carry a value across a rounding boundary: one bf16 step of the reference
+# plus the fp32 term. Shapes [B, D, H, W]: ragged tiles (B = 2, D = 3,
+# 17 x 23; 40 x 70), then the three serving stages at 1152x864.
+PROB_SHAPES = [(2, 3, 17, 23), (1, 9, 40, 70), (1, 64, 216, 288), (1, 32, 432, 576),
+               (1, 8, 864, 1152)]
+
+
+def _prob_inputs(dev, dtype, b, d, h, w, layout, seed=0):
+    """The volume as the U-Net hands it over (channels_last_3d) or
+    contiguous NCDHW, and a seeded Conv3d(8, 1, 3, padding=1, bias=False)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, d, h, w, 8, generator=g, device=dev).to(dtype).permute(0, 4, 1, 2, 3)
+    if layout == "contiguous":
+        x = x.contiguous()
+    m = torch.nn.Conv3d(8, 1, 3, padding=1, bias=False).to(dev)
+    with torch.no_grad():
+        m.weight.copy_(0.2 * torch.randn(m.weight.shape, generator=g, device=dev))
+    return x, m
+
+
+def _prob_tolerance(want, dtype):
+    tol = 1e-5 * want.abs().max()
+    if dtype == torch.bfloat16:  # one bf16 step at |want|: 2^(e - 8), want = f 2^e
+        tol = tol + torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+    return tol
+
+
+@pytest.mark.parametrize("shape", PROB_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("layout", ["channels_last", "contiguous"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prob_conv_matches_conv(dev, shape, layout, dtype):
+    x, m = _prob_inputs(dev, dtype, *shape, layout)
+    n0 = prob_conv.prob_conv3d.launches
+    with torch.inference_mode():
+        got = prob_conv.prob_conv3d(x, m)
+        torch.cuda.synchronize()
+        want = F.conv3d(x.float(), m.weight.to(dtype).float(), padding=1)
+    assert prob_conv.prob_conv3d.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (shape[0], 1, *shape[1:]) and got.is_contiguous()
+    assert bool(((got.float() - want).abs() <= _prob_tolerance(want, dtype)).all())
+
+
+def test_prob_conv_rejects_bad_input(dev):
+    x, m = _prob_inputs(dev, torch.float32, 1, 4, 8, 8, "channels_last")
+    with torch.inference_mode():
+        with pytest.raises(ValueError):  # float16
+            prob_conv.prob_conv3d(x.half(), m)
+        with pytest.raises(ValueError):  # C = 4
+            prob_conv.prob_conv3d(x[:, :4], torch.nn.Conv3d(4, 1, 3, padding=1, bias=False).to(dev))
+        with pytest.raises(ValueError):  # the weight on the CPU
+            prob_conv.prob_conv3d(x, torch.nn.Conv3d(8, 1, 3, padding=1, bias=False))
+        with pytest.raises(ValueError):  # a bias
+            prob_conv.prob_conv3d(x, torch.nn.Conv3d(8, 1, 3, padding=1).to(dev))
+    with pytest.raises(RuntimeError, match="no backward"):
+        prob_conv.prob_conv3d(x, m)  # the weight needs a gradient
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_costregnet_prob_on_the_kernel(dev, dtype, monkeypatch):
+    """CostRegNet in eval under inference_mode: ``prob`` gets the U-Net's
+    output in channels_last_3d (read as it is, no copy) and launches the
+    kernel once; the output against the plain route (the library
+    convolution) at the limits above."""
+    seen = []
+    kernel = prob_conv.prob_conv3d
+    monkeypatch.setattr(costreg, "prob_conv", types.SimpleNamespace(
+        CHANNELS=prob_conv.CHANNELS, prob_conv3d=lambda x, m: seen.append(
+            x.is_contiguous(memory_format=torch.channels_last_3d)) or kernel(x, m)))
+    net = costreg.CostRegNet(8, 8).to(dev).eval()
+    x, _ = _prob_inputs(dev, dtype, 2, 16, 24, 40, "channels_last")
+    n0 = kernel.launches
+    with torch.inference_mode():
+        got = net(x)
+        want = net(x, plain=True)
+    assert seen == [True] and kernel.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (2, 1, 16, 24, 40)
+    assert bool(((got.float() - want.float()).abs()
+                 <= _prob_tolerance(want.float(), dtype)).all())
+
+
+@pytest.mark.parametrize("base", [4, 16])
+def test_costregnet_prob_other_widths(dev, base):
+    """A U-Net of another width (``cr_base_chs`` (8, 4, 16) or (4, 8, 4))
+    serves on the card: ``prob`` keeps the library convolution there, as
+    its plain route does, and launches no kernel."""
+    net = costreg.CostRegNet(8, base).to(dev).eval()
+    x, _ = _prob_inputs(dev, torch.bfloat16, 2, 16, 24, 40, "channels_last")
+    n0 = prob_conv.prob_conv3d.launches
+    with torch.inference_mode():
+        got = net(x)
+        want = net(x, plain=True)
+    assert prob_conv.prob_conv3d.launches == n0
+    assert got.shape == (2, 1, 16, 24, 40) and torch.equal(got, want)
+
+
+def test_cascade_cr_base_chs_serves(dev, monkeypatch):
+    """The cascade at ``cr_base_chs`` (8, 4, 16) through DepthRunner on
+    the card: stage 1's ``prob`` (8 channels) launches the kernel once a
+    request, stages 2 and 3 keep the library convolution; the depths
+    against the same model with every ``prob`` on the library convolution
+    (fp32, TF32 off), at 1e-4 of the sweep's range (only stage 1's sums
+    are ordered otherwise)."""
+    from damvsnet_tpu_torch.data.synthetic import make_synthetic_sample
+    from damvsnet_tpu_torch.infer import DepthRunner
+    from damvsnet_tpu_torch.model import CascadeMVSNet
+    sample = make_synthetic_sample(height=64, width=96, nviews=3, ndepths=16, seed=3)
+    batch = {"imgs": sample["imgs"][None],
+             "proj_matrices": {k: v[None] for k, v in sample["proj_matrices"].items()},
+             "depth_values": sample["depth_values"][None]}
+    torch.manual_seed(0)
+    runner = DepthRunner(CascadeMVSNet(ndepths=(16, 8, 8), cr_base_chs=(8, 4, 16), device=dev),
+                         device=dev)
+    n0 = prob_conv.prob_conv3d.launches
+    got = runner(batch)
+    assert prob_conv.prob_conv3d.launches == n0 + 1
+    monkeypatch.setattr(costreg, "prob_conv", types.SimpleNamespace(
+        CHANNELS=prob_conv.CHANNELS, prob_conv3d=lambda x, m: costreg.conv(x, m)))
+    want = runner(batch)
+    assert prob_conv.prob_conv3d.launches == n0 + 1
+    scale = float(sample["depth_values"].max() - sample["depth_values"].min())
+    for key in ("stage1", "stage2"):
+        torch.testing.assert_close(got[key]["depth"], want[key]["depth"], rtol=0,
+                                   atol=1e-4 * scale)
+    torch.testing.assert_close(got["depth"], want["depth"], rtol=0, atol=1e-4 * scale)
