@@ -54,8 +54,11 @@ def train_reading(cell, seed, device, precision="fp32"):
     from benchmark import check, program, scenes
     t, cfg = cell["traffic"], cell["config"]
     if precision == "fp32":
-        session = program.Train(cell, seed, device)
-        first, pool = session.first, session.pool
+        session = program.SESSIONS[t["kind"]](cell, seed, device)
+        try:
+            first, pool = session.first, session.pool
+        finally:
+            session.close()
         del session
     else:
         pool = scenes.make_pool(seed, t["first_steps"], t["batch"], t["height"], t["width"],
@@ -96,7 +99,7 @@ def main(argv=None):
         cell["config"]["compute_dtype"] = args.dtype
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
-    serve = cell["traffic"]["kind"] == "serve"
+    serve = program.SESSIONS[cell["traffic"]["kind"]].GROUP == "serve"
     model = program.build_model(cell["config"], "serve", device) if serve else None
 
     def reading(kind, seed, precision="fp32"):

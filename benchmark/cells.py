@@ -9,10 +9,12 @@ A cell reports the end-to-end metrics that list it (or list no cells)
 and the per-layer metrics that list it. Adding a cell, a configuration or
 a metric adds files and entries; no file here names one.
 
-A configuration is refused where it holds a key that nothing reads, or a
-model, optimizer or loss setting that the reference does not implement
-(``reference.settings``); a traffic mix where its keys are not the ones
-its kind's session reads (``program.SESSIONS``).
+A configuration names its reference with ``"reference"``: a module under
+``reference/`` (``reference.for_config``; without the key, the default).
+It is refused where it holds a key that nothing reads, or a model,
+optimizer or loss setting that its reference does not implement (the
+module's ``settings``); a traffic mix where its keys are not the ones its
+kind's session reads (``program.SESSIONS``).
 """
 from __future__ import annotations
 
@@ -21,13 +23,12 @@ import importlib.util
 import json
 from pathlib import Path
 
-from . import program
-from .reference import settings
+from . import program, reference
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
-CONFIG_KEYS = {"name", "source", "source_settings", "model", "compute_dtype", "weights",
-               "weights_sha256", "serve", "train", "dataset", "reduced", "assumed"}
+CONFIG_KEYS = {"name", "source", "source_settings", "reference", "model", "compute_dtype",
+               "weights", "weights_sha256", "serve", "train", "dataset", "reduced", "assumed"}
 
 
 def _json(path):
@@ -55,12 +56,12 @@ def load(workload, bench=None, here=HERE):
     if set(cfg) - CONFIG_KEYS:
         raise SystemExit(f"configs/{entry['config']}.json: keys nothing reads: "
                          f"{sorted(set(cfg) - CONFIG_KEYS)}")
-    if set(traffic) != program.SESSIONS[traffic["kind"]].KEYS:
+    session = program.SESSIONS[traffic["kind"]]
+    if set(traffic) != session.KEYS:
         raise SystemExit(f"traffic/{entry['traffic']}.json holds {sorted(traffic)}, a "
-                         f"{traffic['kind']} session reads "
-                         f"{sorted(program.SESSIONS[traffic['kind']].KEYS)}")
+                         f"{traffic['kind']} session reads {sorted(session.KEYS)}")
     try:
-        settings(cfg, traffic["kind"])
+        reference.for_config(cfg).settings(cfg, session.GROUP)
     except ValueError as e:
         raise SystemExit(f"configs/{entry['config']}.json: {e}") from e
     cfg["weights"] = str(ROOT / cfg["weights"])

@@ -19,6 +19,10 @@ on the same batches:
            change over the first steps
   stats    the median leaf's gap between the norms of the BatchNorm
            running statistics' change over the first steps
+  replicas (across cards) the largest difference of an element of
+           the parameters and running statistics between rank 0 and any
+           other rank after the first steps: DDP's averaged gradient,
+           the synced statistics and Adam are the same on every rank
 Each gap of norms is measured against the larger of the reference leaf's
 norm and the median leaf's. Leaves whose reference gradient is under a
 thousandth of the median leaf's are left out of ``change``: Adam moves
@@ -88,41 +92,44 @@ def train_readings(first, reference, batch):
 def train_numbers(first, reference, batch):
     """The compared training numbers (see the module's docstring)."""
     r = train_readings(first, reference, batch)
-    return {"loss": r["loss"], "depth": r["depth"], "grad": r["grad_median"],
-            "change": r["change_worst"], "stats": r["stats_median"]}
+    out = {"loss": r["loss"], "depth": r["depth"], "grad": r["grad_median"],
+           "change": r["change_worst"], "stats": r["stats_median"]}
+    if "replicas" in first:
+        out["replicas"] = first["replicas"]
+    return out
 
 
 def judge(numbers, limits):
     """(correct, {name: {"value", "limit"}}): correct where every number is
-    finite and at most its limit."""
-    checked = {k: {"value": float(v), "limit": float(limits[k])} for k, v in numbers.items()}
+    finite and at most its limit. Every number needs an entry in the
+    limits; a limit of null leaves its number out (a number with no upper
+    reading in that cell, PERF.md section 6)."""
+    checked = {k: {"value": float(v), "limit": float(limits[k])} for k, v in numbers.items()
+               if limits[k] is not None}
     ok = all(np.isfinite(c["value"]) and c["value"] <= c["limit"] for c in checked.values())
     return ok, checked
 
 
-def _reference_weights(model_cfg, path, device):
-    from .reference import weights
-    return weights.load(path, model_cfg["agg_mode"] == "adaptive",
-                        model_cfg["use_geo_fusion"], device)
-
-
 def reference_serve(cfg, pool, scenes, device, precision="fp32"):
-    """{scene: the reference's answer (numpy)} for each scene index."""
+    """{scene: the reference's answer (numpy)} for each scene index, from
+    the reference module the configuration names."""
     from . import reference
-    rcfg = reference.settings(cfg, "serve")["model"]
-    params, buffers = _reference_weights(rcfg, cfg["weights"], device)
+    ref = reference.for_config(cfg)
+    rcfg = ref.settings(cfg, "serve")["model"]
+    params, buffers = ref.load_weights(cfg["weights"], rcfg, device)
     return {s: {k: {n: t.cpu().numpy() for n, t in v.items()}
-                for k, v in reference.serve(params, buffers, rcfg, pool[s], precision).items()}
+                for k, v in ref.serve(params, buffers, rcfg, pool[s], precision).items()}
             for s in sorted(set(scenes))}
 
 
 def reference_train(cfg, batches, iters_per_epoch, device, precision="fp32"):
-    """The reference's first steps on ``batches``, reduced to the norms
-    ``train_numbers`` compares."""
+    """The first steps of the reference module the configuration names on
+    ``batches``, reduced to the norms ``train_numbers`` compares."""
     from . import reference
-    rcfg = reference.settings(cfg, "train")
-    params, buffers = _reference_weights(rcfg["model"], cfg["weights"], device)
-    out = reference.train_steps(params, buffers, rcfg, batches, iters_per_epoch, precision)
+    ref = reference.for_config(cfg)
+    rcfg = ref.settings(cfg, "train")
+    params, buffers = ref.load_weights(cfg["weights"], rcfg["model"], device)
+    out = ref.train_steps(params, buffers, rcfg, batches, iters_per_epoch, precision)
     change = {k: (v - params[k]).norm().item() for k, v in out["params"].items()}
     change.update({k: (v - buffers[k]).norm().item() for k, v in out["buffers"].items()})
     return {"losses": out["losses"], "change_norms": change,

@@ -2,11 +2,14 @@
 run's record and returns a number, or None where the record holds nothing
 for it (another kind of cell, or a run without its trace).
 
-The record: "kind" ("serve" or "train"), "setup_s", "units" (requests or
-steps in the window), "samples_per_unit", "window_s", "dispatch_s" (the
-host's time in the program's calls over the window), "latencies_s"
-(serving), "flops_per_unit" and "bounds_ms" (kernel: least ms a unit),
-and, in a traced run, "trace" (``trace.reduce``).
+The record: "kind" ("serve" or "train": the configuration's group the
+session runs), "chips" (the cell's cards), "setup_s", "units" (requests
+or steps in the window), "samples_per_unit" (over every card),
+"window_s", "dispatch_s" (the host's time in the program's calls over the
+window, on the first card's process), "latencies_s" (serving),
+"flops_per_unit" and "bounds_ms" (kernel: least ms a unit), and, in a
+traced run, "trace" (``trace.reduce`` of the first card's process; across
+cards its "busy_s" and "window_s" are the cards' means).
 """
 from __future__ import annotations
 
@@ -48,10 +51,11 @@ def idle_share(record, kind):
 
 def mfu(record, kind, peak_flops):
     """Counted FLOPs a unit x units a second over the window, as a share
-    of the peak, in %."""
+    of the peak of the cell's cards together, in %."""
     if record["kind"] != kind or record.get("flops_per_unit") is None:
         return None
-    return 100.0 * record["flops_per_unit"] * record["units"] / record["window_s"] / peak_flops
+    rate = record["flops_per_unit"] * record["units"] / record["window_s"]
+    return 100.0 * rate / (peak_flops * record["chips"])
 
 
 def dispatch_ms(record, kind):

@@ -3,19 +3,59 @@ of the program, nothing of the program imported. It reads the raw
 checkpoint itself (``weights.load``) and takes the same input arrays as
 the program.
 
-``settings``: what of a configuration the reference implements, refusing
-anything else. ``serve``: the serving forward (eval-mode BatchNorm on the
-running statistics). ``train_steps``: the first steps of training from
-the checkpoint, as the program's non-fused step takes them.
+A configuration names its reference: ``"reference": "<module>"`` in
+``configs/<name>.json`` is ``benchmark/reference/<module>.py``; without
+the key it is this package (``for_config``). A reference module gives:
+
+  settings(cfg, kind)      what of a configuration it implements for
+                           ``kind`` ("serve" or "train"), refusing anything
+                           else (ValueError)
+  load_weights(path, model_cfg, device)   (params, buffers) from the
+                           configuration's raw checkpoint
+  serve(params, buffers, model_cfg, batch, precision)   the serving
+                           forward (eval-mode BatchNorm on the running
+                           statistics)
+  train_steps(params, buffers, train_cfg, batches, iters_per_epoch,
+              precision)   the first steps of training from the
+                           checkpoint, as the program's step takes them
+  counted_pass(params, buffers, rcfg, batch, training)   the pass whose
+                           FLOPs ``yardstick.counted_flops`` counts on the
+                           meta device
+
+A module of another architecture can subclass ``model.Cascade`` (its
+``features``, ``costreg`` and the other layers are methods) and hand the
+subclass to this package's ``serve``, ``train_steps`` and
+``counted_pass`` as ``cascade``.
 """
 from __future__ import annotations
 
 import contextlib
+import importlib
+import sys
 
 import torch
 
-from . import train
+from . import train, weights
 from .model import Cascade
+
+
+def for_config(cfg):
+    """The reference module that the configuration names, or this package.
+    Raises ValueError for a name that is no module under
+    ``benchmark/reference/``."""
+    name = cfg.get("reference")
+    if name is None:
+        return sys.modules[__name__]
+    if not isinstance(name, str) or not name.isidentifier():
+        raise ValueError(f"reference {name!r} is not the name of a module under "
+                         "benchmark/reference/")
+    module = f"{__name__}.{name}"
+    try:
+        return importlib.import_module(module)
+    except ModuleNotFoundError as e:
+        if e.name != module:
+            raise
+        raise ValueError(f"no reference module {module} (benchmark/reference/{name}.py)") from e
 
 
 def _triple(v):
@@ -67,7 +107,7 @@ def settings(cfg, kind):
         raise ValueError(f"kind {kind!r} is neither 'serve' nor 'train'")
     if set(cfg[kind]) != set(GROUPS[kind]):
         raise ValueError(f"the configuration's {kind!r} group holds {sorted(cfg[kind])}, "
-                         f"the reference reads {sorted(GROUPS[kind])}")
+                         f"the reference {__name__} reads {sorted(GROUPS[kind])}")
     both = set(cfg["model"]) & set(cfg[kind]["model"])
     if both:
         raise ValueError(f"{sorted(both)} set both in 'model' and in {kind!r}'s model")
@@ -75,13 +115,21 @@ def settings(cfg, kind):
     for group, rules in GROUPS[kind].items():
         got = out[group]
         if set(got) != set(rules):
-            raise ValueError(f"{kind} {group}: the reference implements exactly "
+            raise ValueError(f"{kind} {group}: the reference {__name__} implements exactly "
                              f"{sorted(rules)}; missing {sorted(set(rules) - set(got))}, "
                              f"unknown {sorted(set(got) - set(rules))}")
         bad = {k: v for k, v in got.items() if not rules[k](v)}
         if bad:
-            raise ValueError(f"{kind} {group}: values the reference does not implement: {bad}")
+            raise ValueError(f"{kind} {group}: values the reference {__name__} does not "
+                             f"implement: {bad}")
     return out
+
+
+def load_weights(path, model_cfg, device="cpu"):
+    """(params, buffers) of the configuration's checkpoint, named as the
+    reference DA-MVSNet names them (``weights.load``)."""
+    return weights.load(path, model_cfg["agg_mode"] == "adaptive",
+                        model_cfg["use_geo_fusion"], device)
 
 
 @contextlib.contextmanager
@@ -101,7 +149,7 @@ def _tensors(tree, device):
     return torch.as_tensor(tree, dtype=torch.float32, device=device)
 
 
-def serve(params, buffers, model_cfg, batch, precision="fp32"):
+def serve(params, buffers, model_cfg, batch, precision="fp32", cascade=Cascade):
     """model_cfg: ``settings(...)["model"]``. batch: numpy imgs [B, N, H, W,
     3], proj_matrices {stage: [B, N, 2, 4, 4]}, depth_values [B, D0].
     Returns {stageK: {depth, photometric_confidence}} as fp32 tensors on the
@@ -109,13 +157,14 @@ def serve(params, buffers, model_cfg, batch, precision="fp32"):
     device = next(iter(params.values())).device
     x = _tensors({k: batch[k] for k in ("imgs", "proj_matrices", "depth_values")}, device)
     with torch.no_grad(), true_fp32():
-        out = Cascade(params, buffers, model_cfg, training=False, precision=precision)(
+        out = cascade(params, buffers, model_cfg, training=False, precision=precision)(
             x["imgs"], x["proj_matrices"], x["depth_values"])
     return {f"stage{i}": {k: out[f"stage{i}"][k] for k in ("depth", "photometric_confidence")}
             for i in (1, 2, 3)}
 
 
-def train_steps(params, buffers, train_cfg, batches, iters_per_epoch, precision="fp32"):
+def train_steps(params, buffers, train_cfg, batches, iters_per_epoch, precision="fp32",
+                cascade=Cascade):
     """Adam steps from (params, buffers), one a batch (numpy, the
     training loader's layout); train_cfg: ``settings(cfg, "train")``. Each
     view's cost volume is checkpointed, so that the fp32 step fits where
@@ -131,7 +180,7 @@ def train_steps(params, buffers, train_cfg, batches, iters_per_epoch, precision=
         for step, batch in enumerate(batches):
             x = _tensors({k: batch[k] for k in ("imgs", "proj_matrices", "depth_values",
                                                  "depth", "mask")}, device)
-            net = Cascade(params, buffers, train_cfg["model"], training=True,
+            net = cascade(params, buffers, train_cfg["model"], training=True,
                           precision=precision, checkpoint_volumes=True)
             out = net(x["imgs"], x["proj_matrices"], x["depth_values"])
             total = train.loss(out, x, train_cfg["loss"]["dlossw"])
@@ -151,3 +200,12 @@ def train_steps(params, buffers, train_cfg, batches, iters_per_epoch, precision=
             buffers = net.running_stats()
     return {"losses": losses, "grads": first_grads, "depth": depth,
             "params": {k: v.detach() for k, v in params.items()}, "buffers": buffers}
+
+
+def counted_pass(params, buffers, rcfg, batch, training, cascade=Cascade):
+    """The pass whose FLOPs are counted: the forward on ``batch`` (tensors)
+    and, in training, the loss, returned for the backward; None in
+    serving. rcfg: ``settings(cfg, kind)``."""
+    out = cascade(params, buffers, rcfg["model"], training=training)(
+        batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+    return train.loss(out, batch, rcfg["loss"]["dlossw"]) if training else None

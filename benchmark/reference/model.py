@@ -7,6 +7,9 @@ are a view's), GeoFeatureFusion ("z" encoding) on the reference feature at
 stages 2 and 3, ADIA hypotheses (clamped into the input sweep where
 ``clamp_samples``), the adaptive cost volume with the weight nets or the
 variance cost volume, one CostRegNet a stage, and the statistics tail.
+Each part is a method (``features``, ``geo_fusion``, ``cost_volume``,
+``costreg``, ...), so that a reference of another architecture subclasses
+``Cascade`` and replaces the part it changes.
 
 In training, BatchNorm normalizes with the batch statistics (biased
 variance) and records them in call order; ``running_stats()`` applies them
@@ -230,6 +233,19 @@ class Cascade:
                 total = total + view(src, proj)
         return total / len(srcs)
 
+    def features(self, nchw):
+        """{stage: [each view's feature map]} of the views ``nchw`` [B, N, 3,
+        H, W]: in training one FeatureNet call a view (its batch statistics
+        are a view's), in serving one call over every view. A reference of
+        another architecture overrides it (FMT transforms the views'
+        features jointly)."""
+        b, n, _, height, width = nchw.shape
+        if self.training:
+            per_view = [self.feature(nchw[:, v]) for v in range(n)]
+            return {k: [f[k] for f in per_view] for k in per_view[0]}
+        both = self.feature(nchw.reshape(b * n, 3, height, width))
+        return {k: list(f.reshape(b, n, *f.shape[1:]).unbind(1)) for k, f in both.items()}
+
     # -- the cascade ----------------------------------------------------
     def __call__(self, imgs, proj_matrices, depth_values):
         """imgs [B, N, H, W, 3]; proj_matrices {stage: [B, N, 2, 4, 4]};
@@ -240,12 +256,7 @@ class Cascade:
         dmin = depth_values.min(1).values.view(-1, 1, 1, 1)
         dmax = depth_values.max(1).values.view(-1, 1, 1, 1)
         nchw = imgs.permute(0, 1, 4, 2, 3)
-        if self.training:
-            per_view = [self.feature(nchw[:, v]) for v in range(n)]
-            feats = {k: [f[k] for f in per_view] for k in per_view[0]}
-        else:
-            both = self.feature(nchw.reshape(b * n, 3, height, width))
-            feats = {k: list(f.reshape(b, n, *f.shape[1:]).unbind(1)) for k, f in both.items()}
+        feats = self.features(nchw)
         outputs, depth, sigma = {}, None, None
         for i, ndepth in enumerate(cfg["ndepths"]):
             name = f"stage{i + 1}"

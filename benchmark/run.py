@@ -15,6 +15,11 @@ last line of standard output is the result as JSON: the end-to-end
 metrics, or with ``--trace 1`` the per-layer ones; the last lines of
 standard error are the compared numbers beside their limits.
 
+A cell on more than one card runs one process a card (``ranks.py``):
+this process is rank 0 on the first card. A rank that fails, or ranks
+that outlast ``ranks.LIMIT_S`` besides the window, end the run with exit
+code 4 and the tail of each rank's standard error.
+
 It exits non-zero, printing no result, without enough CUDA devices, or
 if JAX or the JAX package is loaded in the process once the window has
 closed. The port's kernels build into its own ``ops/kernels/_build/``
@@ -52,28 +57,32 @@ def run(cell, seed, seconds, traced, device, t_start):
 
     from benchmark import cells, check, program, trace, yardstick
 
-    kind, cfg, traffic = cell["traffic"]["kind"], cell["config"], cell["traffic"]
-    session = program.SESSIONS[kind](cell, seed, device)
-    setup_s = time.perf_counter() - t_start
-    win = session.window(seconds)
-    record = {"kind": kind, "setup_s": setup_s, "samples_per_unit": session.samples_per_unit,
-              **{k: win[k] for k in ("units", "window_s", "dispatch_s")},
-              "latencies_s": win.get("latencies_s")}
-    result = {"attempted": win["units"], "failed": win.get("failed", 0)}
+    cfg, traffic = cell["config"], cell["traffic"]
+    session = program.SESSIONS[traffic["kind"]](cell, seed, device)
+    kind = session.GROUP
+    try:
+        setup_s = time.perf_counter() - t_start
+        win = session.window(seconds)
+        record = {"kind": kind, "chips": cell["chips"], "setup_s": setup_s,
+                  "samples_per_unit": session.samples_per_unit,
+                  **{k: win[k] for k in ("units", "window_s", "dispatch_s")},
+                  "latencies_s": win.get("latencies_s")}
+        result = {"attempted": win["units"], "failed": win.get("failed", 0)}
+        if traced:
+            units = traffic["trace_units"]
+            record["trace"] = session.trace(units)
+            result["breakdown"] = trace.breakdown(record["trace"])
+        result["memory_peak_bytes"] = session.memory_peak_bytes()
+        pool = session.pool
+        first = getattr(session, "first", None)
+    finally:
+        session.close()
+    del session
     if traced:
-        units = traffic["trace_units"]
-        record["trace"] = trace.reduce(trace.profile(session.unit, units), units)
-        record["flops_per_unit"] = yardstick.counted_flops(cfg, traffic)
+        record["flops_per_unit"] = yardstick.counted_flops(cfg, traffic, kind)
         if kind == "serve":
             record["bounds_ms"] = yardstick.serving_bounds_ms(cfg["model"], traffic,
                                                               cfg["compute_dtype"])
-        result["breakdown"] = trace.breakdown(record["trace"])
-    result["memory_peak_bytes"] = (torch.cuda.max_memory_allocated(device)
-                                   if device.type == "cuda" else 0)
-
-    pool = session.pool
-    first = getattr(session, "first", None)
-    del session
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()

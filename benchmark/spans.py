@@ -222,7 +222,10 @@ def main(argv=None):
     device = torch.device("cuda", 0)
     units = args.units or cell["traffic"]["trace_units"]
     session = program.SESSIONS[cell["traffic"]["kind"]](cell, args.seed, device)
-    prof = trace.profile(session.unit, units)
+    try:
+        prof = trace.profile(session.unit, units)  # rank 0's spans, across cards
+    finally:
+        session.close()
     t = trace.reduce(prof, units)
     result = reduce(prof)
     cost = span_cost_us()

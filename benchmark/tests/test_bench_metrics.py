@@ -15,7 +15,7 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from benchmark import cells, trace, yardstick
+from benchmark import cells, ranks, trace, yardstick
 from benchmark.reference.model import Cascade
 from benchmark.run import run
 
@@ -54,6 +54,9 @@ def test_gap_named_by_innermost_host_activity():
     ("void at::native::_scatter_gather_elementwise_kernel<...>", "gather / scatter"),
     ("Memcpy HtoD (Pageable -> Device)", "copy / layout"),
     ("void at::native::(anonymous)::upsample_bilinear2d_out_frame", "resize"),
+    ("ncclDevKernel_AllReduce_Sum_f32_RING_LL(ncclDevKernelArgsStorage<4096ul>)",
+     "collective (NCCL)"),
+    ("ncclDevKernel_AllGather_RING_LL(ncclDevKernelArgsStorage<4096ul>)", "collective (NCCL)"),
     ("some_new_kernel", "other"),
 ])
 def test_family(name, fam):
@@ -98,7 +101,7 @@ def test_conv3d_flops_hand_count():
 
 
 def test_readers_shares():
-    record = {"kind": "serve", "units": 10, "window_s": 2.0, "samples_per_unit": 1,
+    record = {"kind": "serve", "chips": 1, "units": 10, "window_s": 2.0, "samples_per_unit": 1,
               "flops_per_unit": 1e12, "bounds_ms": {"k1": 0.5},
               "trace": {"units": 2, "kernels": {"void fused_costvol_kernel<bf16>": [0.004, 6]},
                         "families": {}, "busy_s": 1.0, "window_s": 1.0, "gaps": {}}}
@@ -108,6 +111,24 @@ def test_readers_shares():
         100 * 1e12 * 5 / yardstick.BF16_FLOPS_PER_S)
     assert cells.reader("device.mfu.train")(record) is None
     assert cells.reader("depth_maps_per_s")(record) == pytest.approx(5.0)
+    four = {"kind": "train", "chips": 4, "units": 10, "window_s": 2.0, "samples_per_unit": 4,
+            "flops_per_unit": 1e12, "trace": None}
+    assert cells.reader("device.mfu.train")(four) == pytest.approx(
+        100 * 1e12 * 5 / (4 * yardstick.BF16_FLOPS_PER_S))
+    assert cells.reader("train_samples_per_s")(four) == pytest.approx(20.0)
+
+
+def test_nccl_reader_reads_the_rank_that_waits_least():
+    nccl = yardstick.family("ncclDevKernel_AllReduce_Sum_f32_RING_LL")
+    t = {"units": 2, "kernels": {}, "busy_s": 1.0, "window_s": 1.0, "gaps": {},
+         "families": {nccl: 0.5, "convolution": 0.2}, "nccl_s": [0.5, 0.03, 0.2, 0.04]}
+    assert nccl == ranks.NCCL
+    read = cells.reader("dist.nccl_ms.train")
+    assert read({"kind": "train", "trace": t}) == pytest.approx(15.0)
+    assert read({"kind": "serve", "trace": t}) is None
+    one_card = {k: v for k, v in t.items() if k != "nccl_s"}
+    for none in (one_card, {**t, "nccl_s": [0.0, 0.0, 0.0, 0.0]}):
+        assert read({"kind": "train", "trace": none}) is None
 
 
 def _digest(root):
@@ -146,7 +167,7 @@ def test_new_cell_and_metric_are_files_only(tmp_path, cpu):
     assert _digest(BENCH) == before
 
 
-def test_cells_report_their_metrics():
+def test_cells_report_their_metrics(load_cell):
     serve, train = cells.load("dtu_serve"), cells.load("dtu_train")
     assert {m["name"] for m in serve["end_to_end"]} == {
         "depth_maps_per_s", "request_ms_p95", "setup_s"}
@@ -155,4 +176,13 @@ def test_cells_report_their_metrics():
     assert "kernels.k4var_roofline.serve" in {
         m["name"] for m in cells.load("variance_serve")["per_layer"]}
     assert all(m["name"].endswith(".train") for m in train["per_layer"])
-
+    # the cell on four cards, whose entry waits for a bound, would read the
+    # training cell's metrics less the batch-norm family (the synced
+    # BatchNorm launches none of its kernels), with NCCL's; each has a reader
+    ddp = load_cell("dtu_train_ddp4")
+    assert ddp["chips"] == 4 and ddp["config"] == train["config"]
+    assert {m["name"] for m in ddp["end_to_end"]} == {"train_samples_per_s", "setup_s"}
+    assert {m["name"] for m in ddp["per_layer"]} == {
+        m["name"] for m in train["per_layer"]} - {"nn.bn_ms.train"} | {"dist.nccl_ms.train"}
+    for m in ddp["end_to_end"] + ddp["per_layer"]:
+        assert callable(cells.reader(m["name"]))

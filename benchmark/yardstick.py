@@ -72,19 +72,18 @@ def serving_bounds_ms(model_cfg, traffic, compute_dtype):
     return out
 
 
-def counted_flops(cfg, traffic):
-    """The matmul and convolution FLOPs of one request (serving) or one
-    step, forward and backward (training), counted by
-    ``torch.utils.flop_counter`` on the plain reference at the cell's
-    shapes, on the meta device: shapes only, nothing computed."""
-    from .reference import settings, train as ref_train, weights
-    from .reference.model import Cascade
+def counted_flops(cfg, traffic, kind):
+    """The matmul and convolution FLOPs of one request (``kind`` "serve")
+    or one step, forward and backward ("train"), counted by
+    ``torch.utils.flop_counter`` on the reference module the configuration
+    names, at the cell's shapes (the whole batch), on the meta device:
+    shapes only, nothing computed."""
+    from . import reference
 
-    training = traffic["kind"] == "train"
-    rcfg = settings(cfg, traffic["kind"])
-    model_cfg = rcfg["model"]
-    params, buffers = weights.load(cfg["weights"], model_cfg["agg_mode"] == "adaptive",
-                                   model_cfg["use_geo_fusion"])
+    ref = reference.for_config(cfg)
+    training = kind == "train"
+    rcfg = ref.settings(cfg, kind)
+    params, buffers = ref.load_weights(cfg["weights"], rcfg["model"])
     params = {k: torch.empty_like(t, device="meta").requires_grad_(training)
               for k, t in params.items()}
     buffers = {k: torch.empty_like(t, device="meta") for k, t in buffers.items()}
@@ -95,11 +94,9 @@ def counted_flops(cfg, traffic):
              "depth": {f"stage{s}": meta(b, h >> (3 - s), w >> (3 - s)) for s in (1, 2, 3)}}
     batch["mask"] = batch["depth"]
     with FlopCounterMode(display=False) as counter:
-        out = Cascade(params, buffers, model_cfg, training=training)(
-            batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+        loss = ref.counted_pass(params, buffers, rcfg, batch, training)
         if training:
-            torch.autograd.grad(ref_train.loss(out, batch, rcfg["loss"]["dlossw"]),
-                                list(params.values()), allow_unused=True)
+            torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     return counter.get_total_flops()
 
 
@@ -110,6 +107,9 @@ FAMILIES = (
     ("K2 prob stats", ("probstats_kernel",)),
     ("K4 plane-sweep sampler", ("sweep_sampler_kernel",)),
     ("K4 variance cost volume", ("sweep_variance_kernel",)),
+    # NCCL's kernels (ncclDevKernel_AllReduce..., _AllGather...) before
+    # "gather / scatter" and "reduction" below
+    ("collective (NCCL)", ("nccl",)),
     ("optimizer (Adam)", ("multi_tensor", "adam")),
     # cuDNN's BN kernels (bn_fw/bn_bw, batchnorm_*) before "cudnn" below
     ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "welford")),
