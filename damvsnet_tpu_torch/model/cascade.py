@@ -176,8 +176,10 @@ class CascadeMVSNet(nn.Module):
     another; raises if CUDA is absent. The defaults are the shipped
     configuration.
 
-    Under a profiler the forward opens ``cascade.features`` and, at each
-    stage k, ``cascade.stage{k}.geo_fusion`` (stages 2-3 with geo fusion),
+    Under a profiler the forward opens ``cascade.features``, with
+    ``use_fmt`` ``cascade.fmt`` (and inside it ``cascade.fmt.ref``,
+    ``.src`` and ``.pathway``, nn/fmt.py), and, at each stage k,
+    ``cascade.stage{k}.geo_fusion`` (stages 2-3 with geo fusion),
     ``.samples``, ``.cost_volume``, ``.cost_reg`` and ``.stats``.
     """
 
@@ -273,7 +275,8 @@ class CascadeMVSNet(nn.Module):
         with span("cascade.features"):
             feats = self._view_features(imgs)
         if self.use_fmt:
-            feats = self.FMT_with_pathway(feats, self.compute_dtype)
+            with span("cascade.fmt"):
+                feats = self.FMT_with_pathway(feats, self.compute_dtype)
 
         outputs = {}
         depth = sigma = prob_volume = None

@@ -20,6 +20,10 @@ damvsnet_tpu/nn/fmt.py; TransMVSNet lineage).
     LeCun-normal); biases and LayerNorms keep torch's defaults.
   * ``FMTWithPathway``: FMT at stage 1, then the transformed features go
     down the FPN: 1x1 dim reductions, bilinear upsample-add, 3x3 smoothing.
+    Under a profiler it opens ``cascade.fmt.ref`` (the reference's self
+    layers), ``cascade.fmt.src`` (the sources' layers) and
+    ``cascade.fmt.pathway`` (the FPN propagation), in that order, inside
+    the cascade's ``cascade.fmt``.
 
 Precision under a bf16 compute dtype follows flax's promotion: each Dense
 runs in the compute dtype, each LayerNorm computes and returns fp32 (its
@@ -43,6 +47,7 @@ import torch.nn.functional as F
 
 from ..ops.resize import resize_bilinear
 from ..parallel.fmt_sp import sequence_parallel_applies, sequence_parallel_linear_attention
+from ..train.profiler import span
 from .blocks import conv
 from .posenc import sine_position_encoding
 
@@ -176,14 +181,19 @@ class FMTWithPathway(nn.Module):
         Dense layers run in ``dtype``, the compute dtype."""
         x1 = feats["stage1"]
         b, n = x1.shape[:2]
-        refs = self.FMT.ref_forward(x1[:, 0], dtype)
-        srcs = self.FMT.src_forward(refs, x1[:, 1:].reshape(b * (n - 1), *x1.shape[2:]), dtype)
-        s1 = torch.cat([refs[-1][:, None], srcs.view(b, n - 1, *srcs.shape[1:])], dim=1)
-        flat = lambda t: t.reshape(b * n, *t.shape[2:])
-        s2 = self._nhwc_conv(self._upsample_add(
-            self._nhwc_conv(flat(s1), self.dim_reduction_1), flat(feats["stage2"])),
-            self.smooth_1)
-        s3 = self._nhwc_conv(self._upsample_add(
-            self._nhwc_conv(s2, self.dim_reduction_2), flat(feats["stage3"])), self.smooth_2)
+        with span("cascade.fmt.ref"):
+            refs = self.FMT.ref_forward(x1[:, 0], dtype)
+        with span("cascade.fmt.src"):
+            srcs = self.FMT.src_forward(refs, x1[:, 1:].reshape(b * (n - 1), *x1.shape[2:]),
+                                        dtype)
+        with span("cascade.fmt.pathway"):
+            s1 = torch.cat([refs[-1][:, None], srcs.view(b, n - 1, *srcs.shape[1:])], dim=1)
+            flat = lambda t: t.reshape(b * n, *t.shape[2:])  # noqa: E731
+            s2 = self._nhwc_conv(self._upsample_add(
+                self._nhwc_conv(flat(s1), self.dim_reduction_1), flat(feats["stage2"])),
+                self.smooth_1)
+            s3 = self._nhwc_conv(self._upsample_add(
+                self._nhwc_conv(s2, self.dim_reduction_2), flat(feats["stage3"])),
+                self.smooth_2)
         return {"stage1": s1, "stage2": s2.reshape(b, n, *s2.shape[1:]),
                 "stage3": s3.reshape(b, n, *s3.shape[1:])}

@@ -3,7 +3,10 @@
 ``sine_position_encoding``: the LoFTR sine encoding (temp_bug_fix variant)
 computed for the actual (H, W): positions 1-based, channel groups of 4
 carry (sin x, cos x, sin y, cos y) with div_term = exp(arange(0, d/2, 2) *
-(-ln 1e4 / (d/2))), added in the feature's dtype.
+(-ln 1e4 / (d/2))), added in the feature's dtype. The table is built once
+per (C, H, W, dtype, device) and kept on that device (62,208 x 32 at the
+serving stage 1: 8 MB in fp32 that would otherwise cross from pageable
+host memory on every call).
 
 ``PositionEncodingSuperGlue``: the SuperGlue keypoint-MLP alternative,
 normalized pixel positions -> 1x1 convs [2, 32, 64, C] with BN and ReLU,
@@ -38,11 +41,19 @@ def _pe_np(d_model: int, h: int, w: int) -> np.ndarray:
     return pe
 
 
+@lru_cache(maxsize=8)
+def _pe_table(d_model: int, h: int, w: int, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """The table on ``device`` in ``dtype``; a normal tensor even when first
+    built under inference mode, so that a later training forward may use it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_pe_np(d_model, h, w)).to(device=device, dtype=dtype)
+
+
 def sine_position_encoding(x: torch.Tensor) -> torch.Tensor:
     """x: [B, H, W, C] -> x + PE (broadcast over batch), in x's dtype."""
     _, h, w, c = x.shape
-    pe = torch.from_numpy(_pe_np(c, h, w)).to(device=x.device, dtype=x.dtype)
-    return x + pe[None]
+    return x + _pe_table(c, h, w, x.dtype, x.device)[None]
 
 
 class PositionEncodingSuperGlue(nn.Module):

@@ -15,7 +15,9 @@ U-Net decoder for the FPN's laterals with ``arch_mode="unet"``; the U-Net
 widths (``cr_base_chs``) are the arrays' own, and ``load_state_dict``
 checks them against the model. ``module_state_dict_from_flax`` does the
 same for one library module (Reg2d, Hourglass3d, AggWeightNetVolume2,
-PositionEncodingSuperGlue, ...) on its own variables.
+PositionEncodingSuperGlue, ...) on its own variables. ``save_bench_weights``
+walks the same table backwards: a port model's state to the flat layout,
+so that weights the port trained load as the JAX package's do.
 
 Layout permutations (flax -> torch, the inverse of the JAX package's
 transplant):
@@ -283,6 +285,24 @@ def _flax_modules(rows) -> set[str]:
     """The top-level flax modules (``feature``, ``geo_fusion``,
     ``agg_weight_stage1``, ...) that a table reads."""
     return {fkey.split("/")[1] for _, fkey, _ in rows if fkey is not None}
+
+
+def save_bench_weights(model, path) -> dict:
+    """Write the model's state to ``path`` as a compressed .npz in the flat
+    layout that ``load_bench_weights`` reads (weights/bench_ckpt.npz's:
+    fp32 arrays keyed "params/<path>" / "batch_stats/<path>"): the
+    configuration's table walked backwards, each layout permutation
+    inverted; num_batches_tracked has no flax key and is left out. Returns
+    the arrays written."""
+    sd = model.state_dict()
+    flat = {}
+    for tkey, fkey, perm in _table(**model_config(model)):
+        if fkey is None:
+            continue
+        arr = sd[tkey].detach().float().cpu().numpy()
+        flat[fkey] = arr.transpose(np.argsort(perm)) if perm is not None else arr
+    np.savez_compressed(path, **flat)
+    return flat
 
 
 def load_bench_weights(model, path, seeded=()):

@@ -22,7 +22,13 @@ arguments and defaults but ``--device`` in place of ``--platform``.
 
 The model is what the JAX chain builds: ``CascadeMVSNet(ndepths,
 agg_mode="adaptive", use_geo_fusion=True, clamp_samples=False,
-align_corners=args.align_corners)`` in fp32. One JSON goes to ``--out``
+align_corners=args.align_corners)`` in fp32; with ``--use_fmt`` the same
+with the FMT pathway (``use_fmt=True``). ``--init`` starts training from a
+flat checkpoint (``load_bench_weights``) in place of the seeded weights;
+FMT keeps its seeded start. ``--export`` writes the restored model in that
+flat layout (``save_bench_weights``) once training is done, and the report
+records its sha256 and which of the model's tensors, if any, training left
+at their starting values. One JSON goes to ``--out``
 with the JAX chain's keys, plus the card (nvidia-smi's name and power
 limit), the median training step's ms, the peak device memory, the kernel
 launches of the serving run, the restore's comparison and ``reduced``, the
@@ -35,6 +41,9 @@ the DTU score is then the device filter's.
 Usage:
     python3 scripts/e2e_synthetic_torch.py --align_corners --epochs 16 --d0 48 \\
         --ndepths 32,16,8 --lr 1e-3 --out ACCURACY_gpu.json          (one GPU)
+    python3 scripts/e2e_synthetic_torch.py --use_fmt --init weights/bench_ckpt.npz \\
+        --epochs 16 --d0 48 --ndepths 32,16,8 --lr 5e-4 \\
+        --export fmt_port.npz --out ACCURACY_fmt.json   (FMT trained by the port)
     python3 scripts/e2e_synthetic_torch.py --device cpu --height 64 --width 64 \\
         --nviews 3 --d0 16 --ndepths 8,8,8 --epochs 3 --epoch_len 24 --out /tmp/e2e.json
 """
@@ -42,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -76,6 +86,13 @@ def parse_args(argv=None):
     p.add_argument("--align_corners", action="store_true",
                    help="sample the cost volume with align_corners=True, as the JAX "
                         "chain's flag does (see scripts/e2e_synthetic.py)")
+    p.add_argument("--use_fmt", action="store_true",
+                   help="the cascade with the FMT pathway (CascadeMVSNet(use_fmt=True))")
+    p.add_argument("--init", default=None,
+                   help="a flat .npz (weights/bench_ckpt.npz's layout) to start from; "
+                        "FMT keeps its seeded weights")
+    p.add_argument("--export", default=None,
+                   help="write the trained weights to this .npz in that flat layout")
     return p.parse_args(argv)
 
 
@@ -99,7 +116,17 @@ def build_model(args, dev, seed):
     ndepths = tuple(int(x) for x in args.ndepths.split(","))
     return CascadeMVSNet(ndepths=ndepths, compute_dtype=torch.float32, device=dev,
                          agg_mode="adaptive", use_geo_fusion=True, clamp_samples=False,
-                         align_corners=args.align_corners)
+                         align_corners=args.align_corners, use_fmt=args.use_fmt)
+
+
+def init_weights(model, path):
+    """Load the flat checkpoint into ``model``; an FMT model's FMT keeps its
+    seeded weights (weights/bench_ckpt.npz holds none). Returns the modules
+    left seeded."""
+    from damvsnet_tpu_torch.utils.weights import load_bench_weights
+    seeded = ("FMT_with_pathway",) if model.use_fmt else ()
+    load_bench_weights(model, path, seeded=seeded)
+    return seeded
 
 
 def make_state(model, args, steps_per_epoch):
@@ -123,6 +150,11 @@ def train(args, dev, logdir, report):
     from damvsnet_tpu_torch.train.state import Checkpointer, restore_checkpoint
 
     model = build_model(args, dev, seed=1)
+    if args.init:
+        seeded = init_weights(model, args.init)
+        report["init"] = {"from": args.init, "seeded": list(seeded)}
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()
+             if v.dtype.is_floating_point} if args.export else {}
     train_ds = SyntheticDataset(mode="train", nviews=args.nviews, ndepths=args.d0,
                                 height=args.height, width=args.width,
                                 length=args.epoch_len)
@@ -167,6 +199,15 @@ def train(args, dev, logdir, report):
         "tensors": len(restored_sd),
         "restored_bitwise": (trained_sd.keys() == restored_sd.keys() and all(
             torch.equal(trained_sd[k], restored_sd[k]) for k in trained_sd))}
+    if args.export:
+        from damvsnet_tpu_torch.utils.weights import save_bench_weights
+        flat = save_bench_weights(fresh, args.export)
+        with open(args.export, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        report["export"] = {"path": args.export, "arrays": len(flat), "sha256": digest,
+                            "left_at_start": sorted(k for k, v in start.items()
+                                                    if torch.equal(v, trained_sd[k]))}
+        print(f"exported {len(flat)} arrays to {args.export} (sha256 {digest})", flush=True)
     return fresh
 
 

@@ -193,3 +193,30 @@ def test_four_steps_match_jax_trainer(tmp_path):
     assert moved[0] <= 1e-4, moved
     limit = np.maximum(1e-3, ULP_FACTOR * floor)
     assert (moved <= limit).all(), {"moved": moved, "jax_one_ulp_floor": floor}
+
+
+def test_use_fmt_builds_trains_and_exports_the_fmt_model(tmp_path):
+    """``--use_fmt`` builds CascadeMVSNet(use_fmt=True); ``--init`` with
+    bench_ckpt.npz (no FMT keys) keeps FMT's seeded start and loads the rest;
+    ``--export`` writes the trained weights in the flat layout, which load
+    strictly into an FMT model, and training left no tensor at its start."""
+    from damvsnet_tpu_torch.utils.weights import load_bench_weights
+    module = chain()
+    args = module.parse_args(["--use_fmt", "--device", "cpu"])
+    assert module.build_model(args, torch.device("cpu"), seed=1).use_fmt
+    assert not module.build_model(module.parse_args(["--device", "cpu"]), torch.device("cpu"),
+                                  seed=1).use_fmt
+    out, export = tmp_path / "accuracy.json", tmp_path / "fmt.npz"
+    tiny = [a for a in TINY if a != "--align_corners"]
+    tiny[tiny.index("--epochs") + 1], tiny[tiny.index("--epoch_len") + 1] = "1", "4"
+    with pytest.warns(UserWarning, match="FMT_with_pathway keep their seeded initialisation"):
+        report = module.main(tiny + ["--use_fmt", "--init", os.path.join(REPO, "weights",
+                                                                         "bench_ckpt.npz"),
+                                     "--export", str(export), "--workdir", str(tmp_path / "w"),
+                                     "--out", str(out)])
+    assert report["init"]["seeded"] == ["FMT_with_pathway"]
+    assert report["export"]["arrays"] == 460 + 8 * 16 + 4
+    assert report["export"]["left_at_start"] == []
+    assert report["checkpoint"]["restored_bitwise"]
+    from damvsnet_tpu_torch.model import CascadeMVSNet
+    load_bench_weights(CascadeMVSNet(ndepths=(8, 8, 8), device="cpu", use_fmt=True), export)

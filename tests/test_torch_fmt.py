@@ -76,6 +76,27 @@ def test_sine_position_encoding(rng, shape):
                                rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sine_table_kept_on_the_device_gives_the_same_values(rng, dtype):
+    """The table is built once per (C, H, W, dtype, device) and reused; the
+    sum is bitwise what adding the numpy table, cast to x's dtype, gives. A
+    table first built under inference mode still serves a forward that
+    records gradients."""
+    from damvsnet_tpu_torch.nn import posenc
+    x = torch.from_numpy(rng.standard_normal((2, 6, 9, 32)).astype(np.float32)).to(dtype)
+    posenc._pe_table.cache_clear()
+    with torch.inference_mode():
+        first = posenc.sine_position_encoding(x)
+    table = posenc._pe_table(32, 6, 9, dtype, x.device)
+    assert not table.is_inference() and table.dtype == dtype
+    assert posenc._pe_table(32, 6, 9, dtype, x.device) is table
+    want = x + torch.from_numpy(posenc._pe_np(32, 6, 9)).to(dtype)[None]
+    assert torch.equal(first, want)
+    leaf = x.clone().requires_grad_(True)
+    posenc.sine_position_encoding(leaf).float().sum().backward()
+    assert torch.equal(leaf.grad, torch.ones_like(leaf))
+
+
 @pytest.mark.parametrize("mode", ["eval", "train"])
 def test_superglue_position_encoding(rng, mode):
     x = rng.standard_normal((2, 6, 10, 32)).astype(np.float32)

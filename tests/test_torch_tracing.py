@@ -1,7 +1,7 @@
 """The port's spans and counters on the CPU (``train/profiler.py`` ``span``):
 with no profiler running a span enters nothing; under torch.profiler a
 DepthRunner call and a train step open exactly their named spans, once
-each, nested as documented; DepthRunner's ``time_upload`` is a part of its
+each, nested as documented (with FMT, ``cascade.fmt`` and its three parts); DepthRunner's ``time_upload`` is a part of its
 ``time_dispatch``. A tiny cascade: ndepths (8, 8, 8), synthetic scenes at
 32x32, N=3."""
 import pytest
@@ -60,14 +60,17 @@ def _port_spans(fn):
     return out
 
 
-def _cascade(parent, geo_fusion):
-    names = ["cascade.features"]
+def _cascade(parent, geo_fusion, fmt=False):
+    out = [("cascade.features", parent)]
+    if fmt:
+        out += [("cascade.fmt", parent)] + [(f"cascade.fmt.{part}", "cascade.fmt")
+                                            for part in ("ref", "src", "pathway")]
     for k in (1, 2, 3):
         if k > 1 and geo_fusion:
-            names.append(f"cascade.stage{k}.geo_fusion")
-        names += [f"cascade.stage{k}.{part}"
-                  for part in ("samples", "cost_volume", "cost_reg", "stats")]
-    return [(n, parent) for n in names]
+            out.append((f"cascade.stage{k}.geo_fusion", parent))
+        out += [(f"cascade.stage{k}.{part}", parent)
+                for part in ("samples", "cost_volume", "cost_reg", "stats")]
+    return out
 
 
 def test_span_without_profiler_enters_nothing(monkeypatch):
@@ -105,3 +108,21 @@ def test_runner_upload_is_a_part_of_dispatch():
         runner(request)
     assert 0 < runner.time_upload <= runner.time_dispatch
     assert runner.time_fetch > 0
+
+
+def test_fmt_spans_without_profiler_enter_nothing(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    DepthRunner(_model(use_fmt=True), "cpu")(_request())
+
+
+def test_runner_opens_the_fmt_spans_in_order():
+    """An FMT forward opens ``cascade.fmt`` after ``cascade.features`` and,
+    inside it, the reference's layers, the sources' and the pathway."""
+    runner = DepthRunner(_model(use_fmt=True), "cpu")
+    request = _request()
+    assert _port_spans(lambda: runner(request)) == (
+        [("runner.upload", None), ("runner.forward", None)]
+        + _cascade("runner.forward", True, fmt=True) + [("runner.fetch", None)])

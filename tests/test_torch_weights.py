@@ -10,7 +10,8 @@ import jax
 
 from damvsnet_tpu.utils.transplant import transplant_cascade
 from damvsnet_tpu_torch.model import CascadeMVSNet
-from damvsnet_tpu_torch.utils.weights import load_bench_weights, state_dict_from_flax
+from damvsnet_tpu_torch.utils.weights import (load_bench_weights, save_bench_weights,
+                                              state_dict_from_flax)
 
 torch.set_num_threads(1)
 
@@ -197,3 +198,59 @@ def test_seeded_modules_keep_their_init(ckpt):
         ckpt["params/feature/out3/kernel"].transpose(3, 2, 0, 1))
     with pytest.raises(ValueError, match="not modules of the model"):
         load_bench_weights(CascadeMVSNet(device="cpu"), CKPT, seeded=("FMT_with_pathway",))
+
+
+# ---- the port's exporter (save_bench_weights) ----
+
+FMT_CKPT = os.path.join(os.path.dirname(CKPT), "bench_fmt_ckpt.npz")
+FMT_CONFIG = os.path.join(os.path.dirname(os.path.dirname(CKPT)), "benchmark", "configs",
+                          "damvsnet_fmt_dtu.json")
+
+
+@pytest.mark.parametrize("variant", ["default", "variance"] + sorted(VARIANTS))
+def test_exporter_round_trips_through_load_bench_weights(variant, tmp_path):
+    """A seeded model with its BatchNorm statistics moved, exported flat and
+    loaded strictly into a model of another seed: every tensor equal, so
+    none keeps the second model's seeded value; the flat keys are the
+    configuration's table."""
+    from damvsnet_tpu_torch.utils.weights import _table, model_config
+    config = {"default": {}, "variance": {"agg_mode": "variance"}}.get(variant,
+                                                                       VARIANTS.get(variant))
+    torch.manual_seed(0)
+    model = CascadeMVSNet(device="cpu", **config)
+    with torch.no_grad():
+        for k, v in model.named_buffers():
+            if v.dtype.is_floating_point:
+                v.uniform_(0.5, 1.5)
+    path = tmp_path / "flat.npz"
+    flat = save_bench_weights(model, path)
+    assert set(flat) == {f for _, f, _ in _table(**model_config(model)) if f is not None}
+    torch.manual_seed(1)
+    back = load_bench_weights(CascadeMVSNet(device="cpu", **config), path)
+    want, got = model.state_dict(), back.state_dict()
+    assert set(want) == set(got)
+    for k, v in want.items():
+        if not k.endswith("num_batches_tracked"):
+            assert torch.equal(got[k], v), k
+
+
+def test_bench_fmt_ckpt_is_the_configurations_and_trained():
+    """weights/bench_fmt_ckpt.npz is the file damvsnet_fmt_dtu pins by
+    sha256; it loads strictly into an FMT model, and training moved every
+    tensor from its start: bench_ckpt.npz's values, and FMT's seeded start
+    in benchmark/fmt_weights.py, the reference's writer of the file."""
+    import hashlib
+    import json
+    from benchmark import fmt_weights
+    with open(FMT_CONFIG) as f:
+        cfg = json.load(f)
+    with open(FMT_CKPT, "rb") as f:
+        assert hashlib.sha256(f.read()).hexdigest() == cfg["weights_sha256"]
+    assert cfg["model"]["use_fmt"] is True
+    start = load_bench_weights(CascadeMVSNet(device="cpu", use_fmt=True), CKPT,
+                               seeded=("FMT_with_pathway",)).state_dict()
+    start.update(fmt_weights.seeded_fmt(19, "cpu"))
+    trained = load_bench_weights(CascadeMVSNet(device="cpu", use_fmt=True), FMT_CKPT)
+    sd = {k: v for k, v in trained.state_dict().items() if v.dtype.is_floating_point}
+    assert len([k for k in sd if k.startswith("FMT_with_pathway.")]) == 8 * 16 + 4
+    assert not [k for k, v in sd.items() if torch.equal(v, start[k])]
