@@ -28,13 +28,46 @@ from ..train.profiler import span
 from ..utils.device import resolve_device
 
 
+STAGING_ALIGN = 256
+"""Each input's byte offset in the staging buffers is a multiple of this."""
+
+
+def staging_layout(tensors):
+    """(byte offset of each tensor in one buffer, bytes the buffer needs):
+    the tensors one after another, each starting at a multiple of
+    ``STAGING_ALIGN``."""
+    offsets, end = [], 0
+    for t in tensors:
+        offsets.append(end)
+        end += -(-t.numel() * t.element_size() // STAGING_ALIGN) * STAGING_ALIGN
+    return offsets, end
+
+
+def staging_views(buf, tensors, offsets):
+    """Views of the uint8 buffer ``buf``, one per tensor at its offset, each
+    with that tensor's dtype and shape."""
+    return [buf[o:o + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
+            for t, o in zip(tensors, offsets)]
+
+
 class DepthRunner:
     """``time_dispatch`` sums the forward calls (the inputs' upload, the
     host's work and the launches it enqueues), ``time_upload`` the upload
     alone (a part of ``time_dispatch``), ``time_fetch`` the copies of the
     outputs to the host (which wait for the device): the split that tells
     host time from device time. Under a profiler a call opens the spans
-    ``runner.upload``, ``runner.forward`` and ``runner.fetch``."""
+    ``runner.upload``, ``runner.forward`` and ``runner.fetch``.
+
+    On a CUDA device a request's inputs go up through two staging buffers
+    the runner keeps: pinned host memory, which the host fills, and a
+    device buffer of the same size, which one asynchronous copy fills and
+    whose views (``staging_views``) the model reads. There ``time_upload``
+    and ``runner.upload`` cover the fill and the copy's enqueue, not the
+    copy, which runs on the device while the host enqueues the forward. The
+    buffers only grow, when a request needs more bytes than they hold, and
+    are held for the runner's life. ``staged_uploads`` counts the requests
+    uploaded so, ``staging_grows`` the buffers' allocations. On the CPU the
+    inputs are copied as tensors of their own, and both counters stay 0."""
 
     def __init__(self, model, device=None):
         self.device = resolve_device(device)
@@ -42,9 +75,34 @@ class DepthRunner:
         self.time_dispatch = 0.0
         self.time_upload = 0.0
         self.time_fetch = 0.0
+        self.staged_uploads = 0
+        self.staging_grows = 0
+        self._pinned = self._staged = self._copied = None
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
+
+    def _upload(self, arrays) -> list:
+        """The arrays on the device, with the dtypes and shapes
+        ``torch.as_tensor`` gives them."""
+        if self.device.type != "cuda":
+            return [self._tensor(a) for a in arrays]
+        host = [torch.from_numpy(np.asarray(a, order="C")) for a in arrays]
+        offsets, nbytes = staging_layout(host)
+        if self._copied is not None:
+            self._copied.synchronize()  # the last copy has read the pinned bytes
+        if self._pinned is None or self._pinned.numel() < nbytes:
+            self._pinned = self._staged = None  # freed before the larger pair
+            self._pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            self._staged = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+            self.staging_grows += 1
+        for slot, t in zip(staging_views(self._pinned, host, offsets), host):
+            slot.copy_(t)
+        self._staged[:nbytes].copy_(self._pinned[:nbytes], non_blocking=True)
+        self._copied = torch.cuda.Event()
+        self._copied.record(torch.cuda.current_stream(self.device))
+        self.staged_uploads += 1
+        return staging_views(self._staged, host, offsets)
 
     def __call__(self, batch: dict) -> dict:
         """batch: imgs [B, N, H, W, 3], proj_matrices {stage: [B, N, 2, 4, 4]},
@@ -52,9 +110,10 @@ class DepthRunner:
         with torch.inference_mode():
             t0 = time.perf_counter()
             with span("runner.upload"):
-                imgs = self._tensor(batch["imgs"])
-                proj = {k: self._tensor(v) for k, v in batch["proj_matrices"].items()}
-                depth_values = self._tensor(batch["depth_values"])
+                stages = list(batch["proj_matrices"])
+                imgs, *projs, depth_values = self._upload(
+                    [batch["imgs"], *batch["proj_matrices"].values(), batch["depth_values"]])
+                proj = dict(zip(stages, projs))
             t1 = time.perf_counter()
             with span("runner.forward"):
                 out = self.model(imgs, proj, depth_values)
