@@ -635,7 +635,7 @@ def phase_prob_conv(model, dev):
         x32 = torch.randn(1, d, h, w, PROB_CHANNELS, generator=gen,
                           device=dev).permute(0, 4, 1, 2, 3)
         for tag, x in (("fp32", x32), ("bf16", x32.bfloat16())):
-            got = prob_conv3d(x, m)
+            got = prob_conv3d(x, m.weight)
             torch.cuda.synchronize()
             want = F.conv3d(x.float(), m.weight.to(x.dtype).float(), padding=1)
             err = (got.float() - want).abs()
@@ -649,8 +649,8 @@ def phase_prob_conv(model, dev):
             check(bool((err <= tol).all()), f"K5 stage {stage_idx + 1} {tag}: "
                   f"max |err| {row['max_abs']} past its limit")
             if tag == "bf16":  # the serving dtype: the kernel table's times
-                row["ms"] = cuda_ms(lambda: prob_conv3d(x, m), 50)
-                row["kernel_ms"] = device_ms(lambda: prob_conv3d(x, m), PROB_KERNEL)
+                row["ms"] = cuda_ms(lambda: prob_conv3d(x, m.weight), 50)
+                row["kernel_ms"] = device_ms(lambda: prob_conv3d(x, m.weight), PROB_KERNEL)
                 row["plain_ms"] = cuda_ms(lambda: conv(x, m), 20)
                 torch.backends.cudnn.benchmark = True
                 try:
@@ -785,24 +785,18 @@ def bf16_floor(runner, model, batch):
     return float(np.quantile(diff, 0.999))
 
 
-def kernel_counters():
-    """Every kernel wrapper, K1-K5 (K4's sampler and variance entries): each
-    path sets all of their launch counters to 0 just before it runs and
-    reads all of them just after."""
-    from damvsnet_tpu_torch.ops.kernels import fused_costvol, prob_conv, probstats, sweep_sampler
-    return (fused_costvol.fused_adaptive_cost_volume, probstats.prob_volume_stats_fused,
-            fused_costvol.fused_adaptive_cost_volume_backward,
-            sweep_sampler.plane_sweep_sample, sweep_sampler.plane_sweep_variance,
-            prob_conv.prob_conv3d)
-
-
 def reset_counters():
-    for fn in kernel_counters():
+    """Every kernel wrapper's launch counter (``ops.kernels.COUNTED``) to 0:
+    each path sets them all just before it runs and reads them all just
+    after."""
+    from damvsnet_tpu_torch.ops.kernels import COUNTED
+    for fn in COUNTED:
         fn.launches = 0
 
 
 def read_counters():
-    return {fn.__name__: fn.launches for fn in kernel_counters()}
+    from damvsnet_tpu_torch.ops.kernels import COUNTED
+    return {fn.__name__: fn.launches for fn in COUNTED}
 
 
 def check_launches(path, launches, per_unit, units):

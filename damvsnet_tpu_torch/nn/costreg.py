@@ -95,7 +95,7 @@ class CostRegNet(nn.Module):
                 or (torch.is_grad_enabled()
                     and (x.requires_grad or self.prob.weight.requires_grad))):
             return conv(x, self.prob)
-        return prob_conv.prob_conv3d(x, self.prob)
+        return prob_conv.prob_conv3d(x, self.prob.weight)
 
 
 class Reg2d(nn.Module):

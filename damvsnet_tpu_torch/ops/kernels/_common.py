@@ -1,18 +1,23 @@
-"""Argument checks and helpers shared by the kernel wrappers."""
+"""The launch seam of the kernel wrappers (``Entry``, ``counts``) and the
+argument checks and helpers they share."""
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import torch
 
 from ..warp import geoms_from_projs, pixel_affine
+from . import build
 
 # what the plane-sweep kernels (csrc/sampling.cuh) take: feature dtypes,
 # with the code each entry point reads, and channel counts (whole 16-byte
 # vectors of 8 channels)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SUPPORTED_CHANNELS = (8, 16, 32)
-MAX_VIEWS = 16  # kMaxViews in the CUDA sources: source views of one launch
+MAX_VIEWS = 16  # kMaxViews in csrc/common.cuh: source views of one launch
+# the entries' argument types: a pointer, int, long long and float
+VP, INT, LL, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
 def view_chunks(v: int) -> list[slice]:
@@ -49,6 +54,50 @@ def check_launch(name: str, err: int) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+
+
+class Entry:
+    """The C entry point ``symbol`` of csrc/<library>.cu, which takes
+    ``argtypes`` and then the stream and returns a CUDA error code. The
+    library is built and loaded, and the function's argument types set,
+    once per process, at the first launch."""
+
+    def __init__(self, library: str, symbol: str, *argtypes):
+        self.library, self.symbol = library, symbol
+        self.argtypes = [*argtypes, ctypes.c_void_p]
+        self.wrapper = None  # set by ``counts``
+        self._fn = None
+
+    def bind(self):
+        if self._fn is None:
+            fn = getattr(build.load(self.library), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def launch(self, dev: torch.device, *args) -> None:
+        """Launch on ``dev``'s current stream, count the launch in the
+        wrapper's ``.launches`` and raise on a CUDA error."""
+        fn = self.bind()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        self.wrapper.launches += 1
+        check_launch(self.wrapper.__name__, fn(*args, stream))
+
+
+def counts(entry: Entry):
+    """Decorator of a kernel wrapper: ``entry``'s launches are counted in
+    the wrapper's ``.launches`` (from 0), and ``wrapper.entry`` is it."""
+    def mark(wrapper):
+        wrapper.launches, wrapper.entry, entry.wrapper = 0, entry, wrapper
+        return wrapper
+    return mark
+
+
+def pointer_array(tensors):
+    """The tensors' device pointers as a HOST array, as the multi-view
+    entries take their source views."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
 def depth_argument(depth_values: torch.Tensor, b: int, d: int, h: int, w: int):

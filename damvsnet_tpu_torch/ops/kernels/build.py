@@ -1,13 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Each source in ``csrc/`` is a plain-C shared library: nvcc compiles it for
+Each source ``csrc/*.cu`` is a plain-C shared library: nvcc compiles it for
 ``sm_90a`` without PyTorch's headers (a build takes seconds), and the
 wrappers load it with ``ctypes`` and pass pointers and the stream as
 ``c_void_p``. Builds go to ``_build/`` beside this file, named by a hash
-of the source and of every header in ``csrc/`` (``sampling.cuh`` is shared
-by the plane-sweep kernels), so an edited source or header is rebuilt and
-a stale library is never loaded. Nothing is built or loaded when this
-module is imported.
+of the source and of every header in ``csrc/`` (``common.cuh`` is shared
+by every source, ``sampling.cuh`` by the plane-sweep kernels), so an edited
+source or header is rebuilt and a stale library is never loaded. Nothing
+is built or loaded when this module is imported.
 """
 from __future__ import annotations
 
@@ -20,7 +20,6 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("fused_costvol", "fused_costvol_bwd", "probstats", "sweep_sampler", "prob_conv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,15 +48,20 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build(names=SOURCES) -> dict[str, str]:
-    """Compile every named source that has no up-to-date library, all nvcc
-    processes at once. Returns {name: compiler log (ptxas register and
+def sources() -> list[str]:
+    """The libraries' names: the stems of csrc/*.cu."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build(names=None) -> dict[str, str]:
+    """Compile every named source (default: every one in csrc/) that has no
+    up-to-date library, all nvcc processes at once. Returns {name: compiler log (ptxas register and
     spill report)}, empty for sources already built. Raises on a failed
     build with the compiler's output."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     try:
-        for name in names:
+        for name in sources() if names is None else names:
             out = library_path(name)
             if out.exists():
                 continue

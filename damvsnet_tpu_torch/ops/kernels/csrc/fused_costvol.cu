@@ -48,19 +48,15 @@
 // 0.61 ms per serving stage against the first version's 0.83 / 1.13 /
 // 0.66; still 4.8 / 4.8 / 7.4x its bound, stage 3 (C = 8, one lane a
 // pixel, D = 8) gaining least.
+#include "common.cuh"
 #include "sampling.cuh"
 
 namespace {
 
 using sweep::kPiece;
 
-constexpr int kMaxViews = 16;
 constexpr int kThreads = 128;
 constexpr int kRun = 8;  // hypotheses per lane group
-
-struct SrcPtrs {
-  const void* p[kMaxViews];
-};
 
 // params: w1[C], then b1, w2, b2, 1/(N-1)
 template <typename T, int C>
@@ -182,27 +178,6 @@ cudaError_t launch(const void* ref, long long ref_bstride, const SrcPtrs& src,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_c(int C, const void* ref, long long ref_bstride, const SrcPtrs& src,
-                       long long src_bstride, int V, const float* geom, const float* dv,
-                       int dv_per_pixel, const float* params, void* out, int B, int D,
-                       int H, int W, float sx, float ox, float sy, float oy,
-                       cudaStream_t stream) {
-  switch (C) {
-    case 8:
-      return launch<T, 8>(ref, ref_bstride, src, src_bstride, V, geom, dv, dv_per_pixel,
-                          params, out, B, D, H, W, sx, ox, sy, oy, stream);
-    case 16:
-      return launch<T, 16>(ref, ref_bstride, src, src_bstride, V, geom, dv, dv_per_pixel,
-                           params, out, B, D, H, W, sx, ox, sy, oy, stream);
-    case 32:
-      return launch<T, 32>(ref, ref_bstride, src, src_bstride, V, geom, dv, dv_per_pixel,
-                           params, out, B, D, H, W, sx, ox, sy, oy, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
@@ -217,19 +192,12 @@ extern "C" int fused_costvol_launch(const void* ref, long long ref_bstride,
                                     int B, int D, int H, int W, int C, int dtype,
                                     float sx, float ox, float sy, float oy,
                                     void* stream) {
-  if (V < 1 || V > kMaxViews) return (int)cudaErrorInvalidValue;
   SrcPtrs src;
-  for (int v = 0; v < kMaxViews; ++v) src.p[v] = v < V ? src_ptrs[v] : nullptr;
+  if (!src_planes(src_ptrs, V, src)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_c<float>(C, ref, ref_bstride, src, src_bstride, V, geom, dv,
-                            dv_per_pixel, params, out, B, D, H, W, sx, ox, sy, oy, s);
-  else if (dtype == 1)
-    err = dispatch_c<__nv_bfloat16>(C, ref, ref_bstride, src, src_bstride, V, geom, dv,
-                                    dv_per_pixel, params, out, B, D, H, W, sx, ox, sy,
-                                    oy, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return (int)dispatch_dtype_c(dtype, C, [&](auto t, auto c) {
+    return launch<typename decltype(t)::type, decltype(c)::value>(
+        ref, ref_bstride, src, src_bstride, V, geom, dv, dv_per_pixel, params, out, B, D, H,
+        W, sx, ox, sy, oy, s);
+  });
 }

@@ -77,11 +77,11 @@
 // dsrc to the feature dtype.
 #include <limits.h>
 
+#include "common.cuh"
 #include "sampling.cuh"
 
 namespace {
 
-constexpr int kMaxViews = 16;
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -115,10 +115,6 @@ struct Shape {
   static constexpr int TW = P >= 128 ? 16 : 8, TH = P / TW;
   static constexpr int WW = Tile<C>::WW, WH = Tile<C>::WH, S = C + 1;
   static constexpr size_t kWindowBytes = sizeof(float) * WW * WH * S;
-};
-
-struct SrcPtrs {
-  const void* p[kMaxViews];
 };
 
 // p[0..3] += (a, b, c, d); p is 16-byte aligned (C is a multiple of 8)
@@ -517,31 +513,6 @@ cudaError_t launch(const void* ref, long long ref_bstride, const SrcPtrs& src,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_c(int C, const void* ref, long long ref_bstride, const SrcPtrs& src,
-                       long long src_bstride, int V, const float* geom, const float* dv,
-                       int dv_per_pixel, const float* params, const void* cot, float* dref,
-                       float* dsrc, float* dparams, unsigned long long* natomics, int B,
-                       int D, int H, int W, float sx, float ox, float sy, float oy,
-                       cudaStream_t stream) {
-  switch (C) {
-    case 8:
-      return launch<T, 8>(ref, ref_bstride, src, src_bstride, V, geom, dv, dv_per_pixel,
-                          params, cot, dref, dsrc, dparams, natomics, B, D, H, W, sx, ox,
-                          sy, oy, stream);
-    case 16:
-      return launch<T, 16>(ref, ref_bstride, src, src_bstride, V, geom, dv, dv_per_pixel,
-                           params, cot, dref, dsrc, dparams, natomics, B, D, H, W, sx, ox,
-                           sy, oy, stream);
-    case 32:
-      return launch<T, 32>(ref, ref_bstride, src, src_bstride, V, geom, dv, dv_per_pixel,
-                           params, cot, dref, dsrc, dparams, natomics, B, D, H, W, sx, ox,
-                           sy, oy, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16
@@ -560,20 +531,12 @@ extern "C" int fused_costvol_bwd_launch(const void* ref, long long ref_bstride,
                                         float* dparams, unsigned long long* natomics, int B,
                                         int D, int H, int W, int C, int dtype, float sx,
                                         float ox, float sy, float oy, void* stream) {
-  if (V < 1 || V > kMaxViews) return (int)cudaErrorInvalidValue;
   SrcPtrs src;
-  for (int v = 0; v < kMaxViews; ++v) src.p[v] = v < V ? src_ptrs[v] : nullptr;
+  if (!src_planes(src_ptrs, V, src)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_c<float>(C, ref, ref_bstride, src, src_bstride, V, geom, dv, dv_per_pixel,
-                            params, cot, dref, dsrc, dparams, natomics, B, D, H, W, sx, ox,
-                            sy, oy, s);
-  else if (dtype == 1)
-    err = dispatch_c<__nv_bfloat16>(C, ref, ref_bstride, src, src_bstride, V, geom, dv,
-                                    dv_per_pixel, params, cot, dref, dsrc, dparams, natomics,
-                                    B, D, H, W, sx, ox, sy, oy, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return (int)dispatch_dtype_c(dtype, C, [&](auto t, auto c) {
+    return launch<typename decltype(t)::type, decltype(c)::value>(
+        ref, ref_bstride, src, src_bstride, V, geom, dv, dv_per_pixel, params, cot, dref, dsrc,
+        dparams, natomics, B, D, H, W, sx, ox, sy, oy, s);
+  });
 }

@@ -53,10 +53,9 @@
 // stages 1 and 3 and within 5 % of 16 at stage 2. 123 registers a thread
 // leave 4 blocks an SM; each plane costs two barriers and the staging
 // between compute phases.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
 #include <string.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -80,18 +79,6 @@ struct Pix {
   static constexpr int kWords = kC * sizeof(T) / 16;
   uint4 w[kWords];
 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <typename T, bool kVec>
 __device__ __forceinline__ Pix<T> load_pix(const T* p, long long sc) {
@@ -327,7 +314,7 @@ extern "C" int prob_conv3d_launch(const void* x, int dtype, const long long* str
                                   void* stream) {
   if (B < 1 || D < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(x, strides, weight, out, B, D, H, W, s);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(x, strides, weight, out, B, D, H, W, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch_dtype(dtype, [&](auto t) {
+    return launch<typename decltype(t)::type>(x, strides, weight, out, B, D, H, W, s);
+  });
 }

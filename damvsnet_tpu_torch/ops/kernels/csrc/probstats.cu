@@ -36,16 +36,13 @@
 // and three maps; stage 3 at 1152x864 with a bf16 cost moves 91 MB (0.027
 // ms at 3.35 TB/s). chip_smoke.py computes the bound from each run's
 // shapes and element sizes.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "common.cuh"
 
 namespace {
 
 constexpr int kPixels = 32;  // pixels per block, one a lane
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 struct Max {
   __device__ float operator()(float a, float b) const { return fmaxf(a, b); }
@@ -216,10 +213,8 @@ extern "C" int probstats_launch(const void* cost, int dtype, const float* dv, in
                                 int D, long long HW, void* stream) {
   if (B < 1 || D < 1 || HW < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_d<float>(cost, dv, dv_per_pixel, prob, depth, conf, sigma, B, D, HW, s);
-  if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(cost, dv, dv_per_pixel, prob, depth, conf, sigma, B,
-                                          D, HW, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch_dtype(dtype, [&](auto t) {
+    return dispatch_d<typename decltype(t)::type>(cost, dv, dv_per_pixel, prob, depth, conf,
+                                                  sigma, B, D, HW, s);
+  });
 }

@@ -10,9 +10,7 @@
 // H * W * C < 2^31.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace sweep {
 

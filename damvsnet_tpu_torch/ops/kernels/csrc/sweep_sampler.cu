@@ -56,19 +56,15 @@
 // bound by operations at stages 1-2 and by bytes at stage 3. chip_smoke.py
 // computes both bounds from each run's shapes and measures the kernels
 // beside them.
+#include "common.cuh"
 #include "sampling.cuh"
 
 namespace {
 
 using sweep::kPiece;
 
-constexpr int kMaxViews = 16;
 constexpr int kThreads = 128;
 constexpr int kRun = 8;  // hypotheses per lane group
-
-struct SrcPtrs {
-  const void* p[kMaxViews];
-};
 
 // kVariance: the variance of {ref, warp_1..warp_V}; else the warp of view 0
 // (V == 1, ref unused).
@@ -259,25 +255,11 @@ cudaError_t launch(const Args& a, bool variance, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_c(int C, const Args& a, bool variance, cudaStream_t stream) {
-  switch (C) {
-    case 8:
-      return launch<T, 8>(a, variance, stream);
-    case 16:
-      return launch<T, 16>(a, variance, stream);
-    case 32:
-      return launch<T, 32>(a, variance, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 cudaError_t dispatch(int C, int dtype, const Args& a, bool variance, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_c<float>(C, a, variance, s);
-  if (dtype == 1) return dispatch_c<__nv_bfloat16>(C, a, variance, s);
-  return cudaErrorInvalidValue;
+  return dispatch_dtype_c(dtype, C, [&](auto t, auto c) {
+    return launch<typename decltype(t)::type, decltype(c)::value>(a, variance, s);
+  });
 }
 
 }  // namespace
@@ -307,9 +289,8 @@ extern "C" int sweep_variance_launch(const void* ref, long long ref_bstride,
                                      int dv_per_pixel, void* out, int B, int D, int H, int W,
                                      int C, int dtype, float sx, float ox, float sy, float oy,
                                      void* stream) {
-  if (V < 1 || V > kMaxViews) return (int)cudaErrorInvalidValue;
   Args a{ref, ref_bstride, {}, src_bstride, V, geom, dv, dv_per_pixel, out,
          B, D, H, W, sx, ox, sy, oy};
-  for (int v = 0; v < kMaxViews; ++v) a.src.p[v] = v < V ? src_ptrs[v] : nullptr;
+  if (!src_planes(src_ptrs, V, a.src)) return (int)cudaErrorInvalidValue;
   return (int)dispatch(C, dtype, a, true, stream);
 }

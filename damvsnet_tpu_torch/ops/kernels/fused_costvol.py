@@ -32,8 +32,13 @@ from typing import Sequence
 import torch
 
 from ..costvol import build_cost_volume
-from ._common import DTYPE_CODES, MAX_VIEWS, ViewLaunch, check_launch, prepare_views, view_chunks
-from .build import load
+from ._common import (DTYPE_CODES, F32, INT, LL, MAX_VIEWS, VP, Entry, ViewLaunch, counts,
+                      pointer_array, prepare_views, view_chunks)
+
+_K1 = Entry("fused_costvol", "fused_costvol_launch", VP, LL, ctypes.POINTER(VP), LL, INT, VP, VP,
+            INT, VP, VP, INT, INT, INT, INT, INT, INT, F32, F32, F32, F32)
+_K3 = Entry("fused_costvol_bwd", "fused_costvol_bwd_launch", VP, LL, ctypes.POINTER(VP), LL, INT,
+            VP, VP, INT, VP, VP, VP, VP, VP, VP, INT, INT, INT, INT, INT, INT, F32, F32, F32, F32)
 
 
 def folded_weight_fn(w1, b1, w2, b2):
@@ -81,36 +86,12 @@ def _params(w1, b1, w2, b2, L: ViewLaunch) -> torch.Tensor:
     return torch.cat([w1.float().reshape(L.c), *scal, inv])
 
 
-def _bind_forward(lib):
-    fn = lib.fused_costvol_launch
-    vp, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    fn.argtypes = [vp, ll, ctypes.POINTER(vp), ll, i, vp, vp, i, vp, vp,
-                   i, i, i, i, i, i, f, f, f, f, vp]
-    fn.restype = i
-    return fn
-
-
-def _bind_backward(lib):
-    fn = lib.fused_costvol_bwd_launch
-    vp, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    fn.argtypes = [vp, ll, ctypes.POINTER(vp), ll, i, vp, vp, i, vp, vp, vp, vp,
-                   vp, vp, i, i, i, i, i, i, f, f, f, f, vp]
-    fn.restype = i
-    return fn
-
-
 def _launch_forward(L: ViewLaunch, params, ref_fea, src_feas) -> torch.Tensor:
     out = torch.empty((L.b, L.d, L.h, L.w, L.c), dtype=ref_fea.dtype, device=L.dev)
     params = params.detach().contiguous()
-    fn = _bind_forward(load("fused_costvol"))
-    stream = torch.cuda.current_stream(L.dev).cuda_stream
-    fused_adaptive_cost_volume.launches += 1
-    err = fn(ref_fea.data_ptr(), L.ref_bstride,
-             (ctypes.c_void_p * L.v)(*[s.data_ptr() for s in src_feas]),
-             L.src_bstride, L.v, L.geom.data_ptr(), L.dv.data_ptr(), L.per_pixel,
-             params.data_ptr(), out.data_ptr(), L.b, L.d, L.h, L.w, L.c,
-             DTYPE_CODES[ref_fea.dtype], *L.affine, stream)
-    check_launch(L.name, err)
+    _K1.launch(L.dev, ref_fea.data_ptr(), L.ref_bstride, pointer_array(src_feas), L.src_bstride,
+               L.v, L.geom.data_ptr(), L.dv.data_ptr(), L.per_pixel, params.data_ptr(),
+               out.data_ptr(), L.b, L.d, L.h, L.w, L.c, DTYPE_CODES[ref_fea.dtype], *L.affine)
     return out
 
 
@@ -131,17 +112,11 @@ def _launch_backward(L: ViewLaunch, params, ref_fea, src_feas, grad_out, atomics
     dsrc = torch.zeros((L.v, L.b, L.h, L.w, L.c), dtype=torch.float32, device=L.dev)
     dw = torch.zeros(L.c + 3, dtype=torch.float32, device=L.dev)
     params = params.detach().contiguous()
-    fn = _bind_backward(load("fused_costvol_bwd"))
-    stream = torch.cuda.current_stream(L.dev).cuda_stream
-    fused_adaptive_cost_volume_backward.launches += 1
-    err = fn(ref_fea.data_ptr(), L.ref_bstride,
-             (ctypes.c_void_p * L.v)(*[s.data_ptr() for s in src_feas]),
-             L.src_bstride, L.v, L.geom.data_ptr(), L.dv.data_ptr(), L.per_pixel,
-             params.data_ptr(), grad_out.data_ptr(), dref.data_ptr(),
-             dsrc.data_ptr(), dw.data_ptr(),
-             None if atomics is None else atomics.data_ptr(), L.b, L.d, L.h, L.w, L.c,
-             DTYPE_CODES[ref_fea.dtype], *L.affine, stream)
-    check_launch(L.name, err)
+    _K3.launch(L.dev, ref_fea.data_ptr(), L.ref_bstride, pointer_array(src_feas), L.src_bstride,
+               L.v, L.geom.data_ptr(), L.dv.data_ptr(), L.per_pixel, params.data_ptr(),
+               grad_out.data_ptr(), dref.data_ptr(), dsrc.data_ptr(), dw.data_ptr(),
+               None if atomics is None else atomics.data_ptr(), L.b, L.d, L.h, L.w, L.c,
+               DTYPE_CODES[ref_fea.dtype], *L.affine)
     dt = ref_fea.dtype
     return dref.to(dt), [g.to(dt) for g in dsrc.unbind(0)], dw
 
@@ -164,6 +139,7 @@ class _FusedCostVolume(torch.autograd.Function):
         return (None, dparams, dref, *dsrc)
 
 
+@counts(_K1)
 def fused_adaptive_cost_volume(ref_fea: torch.Tensor,
                                src_feas: Sequence[torch.Tensor],
                                ref_proj: torch.Tensor,
@@ -203,6 +179,7 @@ def fused_adaptive_cost_volume(ref_fea: torch.Tensor,
     return _launch_forward(L, params, ref_fea, src_feas)
 
 
+@counts(_K3)
 def fused_adaptive_cost_volume_backward(grad_out: torch.Tensor,
                                         ref_fea: torch.Tensor,
                                         src_feas: Sequence[torch.Tensor],
@@ -226,7 +203,3 @@ def fused_adaptive_cost_volume_backward(grad_out: torch.Tensor,
                                       src_feas, grad_out)
     c = L.c
     return dref, dsrc, dw[:c], dw[c], dw[c + 1], dw[c + 2]
-
-
-fused_adaptive_cost_volume.launches = 0
-fused_adaptive_cost_volume_backward.launches = 0

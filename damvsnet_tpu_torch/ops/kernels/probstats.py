@@ -8,23 +8,15 @@ conversion is exact) and writing prob once. The plain version is
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..regression import prob_volume_stats
-from ._common import DTYPE_CODES, check_cuda, check_launch, depth_argument
-from .build import load
+from ._common import DTYPE_CODES, INT, LL, VP, Entry, check_cuda, counts, depth_argument
+
+_K2 = Entry("probstats", "probstats_launch", VP, INT, VP, INT, VP, VP, VP, VP, INT, INT, LL)
 
 
-def _bind(lib):
-    fn = lib.probstats_launch
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, i, vp, i, vp, vp, vp, vp, i, i, ctypes.c_longlong, vp]
-    fn.restype = i
-    return fn
-
-
+@counts(_K2)
 def prob_volume_stats_fused(prob_volume_pre: torch.Tensor,
                             depth_values: torch.Tensor) -> dict:
     """prob_volume_pre [B, D, H, W] fp32 or bf16; depth_values [B, D] or
@@ -45,16 +37,7 @@ def prob_volume_stats_fused(prob_volume_pre: torch.Tensor,
     prob = torch.empty(cost.shape, dtype=torch.float32, device=dev)
     depth, conf, sigma = (torch.empty((b, h, w), dtype=torch.float32, device=dev)
                           for _ in range(3))
-
-    fn = _bind(load("probstats"))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    prob_volume_stats_fused.launches += 1
-    err = fn(cost.data_ptr(), DTYPE_CODES[cost.dtype], dv.data_ptr(), per_pixel,
-             prob.data_ptr(), depth.data_ptr(), conf.data_ptr(), sigma.data_ptr(),
-             b, d, h * w, stream)
-    check_launch(name, err)
+    _K2.launch(dev, cost.data_ptr(), DTYPE_CODES[cost.dtype], dv.data_ptr(), per_pixel,
+               prob.data_ptr(), depth.data_ptr(), conf.data_ptr(), sigma.data_ptr(), b, d, h * w)
     return {"depth": depth, "photometric_confidence": conf, "variance": sigma,
             "prob_volume": prob}
-
-
-prob_volume_stats_fused.launches = 0

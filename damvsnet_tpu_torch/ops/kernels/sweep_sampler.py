@@ -32,25 +32,13 @@ import torch
 
 from ..costvol import variance_cost_volume
 from ..warp import plane_sweep_warp
-from ._common import DTYPE_CODES, MAX_VIEWS, check_launch, prepare_views
-from .build import load
+from ._common import (DTYPE_CODES, F32, INT, LL, MAX_VIEWS, VP, Entry, counts, pointer_array,
+                      prepare_views)
 
-
-def _bind_sampler(lib):
-    fn = lib.sweep_sampler_launch
-    vp, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    fn.argtypes = [vp, ll, vp, vp, i, vp, i, i, i, i, i, i, f, f, f, f, vp]
-    fn.restype = i
-    return fn
-
-
-def _bind_variance(lib):
-    fn = lib.sweep_variance_launch
-    vp, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    fn.argtypes = [vp, ll, ctypes.POINTER(vp), ll, i, vp, vp, i, vp,
-                   i, i, i, i, i, i, f, f, f, f, vp]
-    fn.restype = i
-    return fn
+_SAMPLER = Entry("sweep_sampler", "sweep_sampler_launch", VP, LL, VP, VP, INT, VP, INT, INT, INT,
+                 INT, INT, INT, F32, F32, F32, F32)
+_VARIANCE = Entry("sweep_sampler", "sweep_variance_launch", VP, LL, ctypes.POINTER(VP), LL, INT,
+                  VP, VP, INT, VP, INT, INT, INT, INT, INT, INT, F32, F32, F32, F32)
 
 
 def _no_autograd(name, *tensors):
@@ -60,6 +48,7 @@ def _no_autograd(name, *tensors):
                            "torch.no_grad() or torch.inference_mode()")
 
 
+@counts(_SAMPLER)
 def plane_sweep_sample(src_fea: torch.Tensor, src_proj: torch.Tensor,
                        ref_proj: torch.Tensor, depth_values: torch.Tensor,
                        align_corners: bool = False) -> torch.Tensor:
@@ -76,14 +65,9 @@ def plane_sweep_sample(src_fea: torch.Tensor, src_proj: torch.Tensor,
     L = prepare_views(name, src_fea, [src_fea], ref_proj, [src_proj], depth_values,
                       align_corners)
     out = torch.empty((L.b, L.d, L.h, L.w, L.c), dtype=src_fea.dtype, device=L.dev)
-
-    fn = _bind_sampler(load("sweep_sampler"))
-    stream = torch.cuda.current_stream(L.dev).cuda_stream
-    plane_sweep_sample.launches += 1
-    err = fn(src_fea.data_ptr(), L.src_bstride, L.geom.data_ptr(), L.dv.data_ptr(),
-             L.per_pixel, out.data_ptr(), L.b, L.d, L.h, L.w, L.c,
-             DTYPE_CODES[src_fea.dtype], *L.affine, stream)
-    check_launch(name, err)
+    _SAMPLER.launch(L.dev, src_fea.data_ptr(), L.src_bstride, L.geom.data_ptr(), L.dv.data_ptr(),
+                    L.per_pixel, out.data_ptr(), L.b, L.d, L.h, L.w, L.c,
+                    DTYPE_CODES[src_fea.dtype], *L.affine)
     return out
 
 
@@ -94,6 +78,7 @@ def _sample_unrounded(src_fea, src_proj, ref_proj, depth_values, align_corners):
                               align_corners)
 
 
+@counts(_VARIANCE)
 def plane_sweep_variance(ref_fea: torch.Tensor, src_feas: Sequence[torch.Tensor],
                          ref_proj: torch.Tensor, src_projs: Sequence[torch.Tensor],
                          depth_values: torch.Tensor,
@@ -117,18 +102,8 @@ def plane_sweep_variance(ref_fea: torch.Tensor, src_feas: Sequence[torch.Tensor]
     L = prepare_views(name, ref_fea, src_feas, ref_proj, src_projs, depth_values,
                       align_corners)
     out = torch.empty((L.b, L.d, L.h, L.w, L.c), dtype=ref_fea.dtype, device=L.dev)
-
-    fn = _bind_variance(load("sweep_sampler"))
-    stream = torch.cuda.current_stream(L.dev).cuda_stream
-    plane_sweep_variance.launches += 1
-    err = fn(ref_fea.data_ptr(), L.ref_bstride,
-             (ctypes.c_void_p * L.v)(*[s.data_ptr() for s in src_feas]),
-             L.src_bstride, L.v, L.geom.data_ptr(), L.dv.data_ptr(), L.per_pixel,
-             out.data_ptr(), L.b, L.d, L.h, L.w, L.c, DTYPE_CODES[ref_fea.dtype],
-             *L.affine, stream)
-    check_launch(name, err)
+    _VARIANCE.launch(L.dev, ref_fea.data_ptr(), L.ref_bstride, pointer_array(src_feas),
+                     L.src_bstride, L.v, L.geom.data_ptr(), L.dv.data_ptr(), L.per_pixel,
+                     out.data_ptr(), L.b, L.d, L.h, L.w, L.c, DTYPE_CODES[ref_fea.dtype],
+                     *L.affine)
     return out
-
-
-plane_sweep_sample.launches = 0
-plane_sweep_variance.launches = 0

@@ -7,12 +7,14 @@ OTHER_TREE is another checkout of the repository, or of its
 ``damvsnet_tpu_torch`` package alone (e.g. the parent commit unpacked with
 ``git archive``). Two checks:
 
-  * code: K1 (csrc/fused_costvol.cu) and K3 (csrc/fused_costvol_bwd.cu)
-    are built in both trees as damvsnet_tpu_torch.ops.kernels.build does,
-    their SASS dumped with cuobjdump, and the two dumps diffed after the
-    lines that name the build's input file (``identifier = ...``) are
-    dropped; each diff goes to DIR/<kernel>.sass.diff and its count of
-    changed lines is printed;
+  * code: every library of csrc/*.cu that both trees have is built in
+    both as damvsnet_tpu_torch.ops.kernels.build does, its SASS dumped with
+    cuobjdump, and the two dumps diffed after the lines that name the
+    build's input file (``identifier = ...``) are dropped: as dumped (to
+    DIR/<library>.sass.diff), and with the functions' names demangled by
+    cu++filt, which hides the per-source hash of the anonymous namespace,
+    and the functions in name order (DIR/<library>.demangled.diff); each
+    diff's count of changed lines is printed;
   * time, one process per tree in the order other, this, this, other:
       - K1 at the three serving shapes (1152x864, N=5, bf16, ndepths
         64/32/8, random features seen by a rig of five cameras on a
@@ -54,7 +56,6 @@ import sys
 from pathlib import Path
 
 THIS_TREE = Path(__file__).resolve().parent.parent
-KERNELS = ("fused_costvol", "fused_costvol_bwd")
 K1_KEY, K3_KEY = "fused_costvol_kernel", "fused_costvol_bwd_kernel"
 K2_KEY, K4_KEY, K4_VARIANCE_KEY = "probstats_kernel", "sweep_sampler_kernel", "sweep_variance_kernel"
 ANY_KERNEL = ""  # every device activity of the call
@@ -76,15 +77,35 @@ def in_tree(tree: Path, *args: str) -> str:
 def build_libraries():
     """(In a tree's process.) Build the kernels; print their library paths."""
     from damvsnet_tpu_torch.ops.kernels import build
-    build.build(KERNELS)
-    print(json.dumps({k: str(build.library_path(k)) for k in KERNELS}))
+    names = sorted(p.stem for p in build.CSRC.glob("*.cu"))  # an older build.py lists none
+    build.build(names)
+    print(json.dumps({k: str(build.library_path(k)) for k in names}))
 
 
-def sass(library: str) -> list[str]:
-    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    out = subprocess.run([cuobjdump, "-sass", library], check=True, capture_output=True,
-                         text=True).stdout
-    return [line for line in out.splitlines() if "identifier =" not in line]
+def sass(library: str, demangled: bool = False) -> list[str]:
+    """The library's SASS less the lines naming the input file; demangled:
+    the names through cu++filt and the functions in name order."""
+    tools = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin")
+    out = subprocess.run([os.path.join(tools, "cuobjdump"), "-sass", library], check=True,
+                         capture_output=True, text=True).stdout
+    lines = [line for line in out.splitlines() if "identifier =" not in line]
+    if not demangled:
+        return lines
+    lines = subprocess.run([os.path.join(tools, "cu++filt")], input="\n".join(lines),
+                           check=True, capture_output=True, text=True).stdout.splitlines()
+    parts = [[]]
+    for line in lines:
+        if "Function :" in line:
+            parts.append([])
+        parts[-1].append(line)
+    return parts[0] + [line for part in sorted(parts[1:]) for line in part]
+
+
+def sass_diff(a: list[str], b: list[str], path: Path) -> int:
+    """Write the unified diff of two dumps to ``path``; its changed lines."""
+    diff = list(difflib.unified_diff(a, b, "other", "this", lineterm="", n=1))
+    path.write_text("\n".join(diff) + "\n")
+    return sum(1 for line in diff if line[:1] in "+-" and not line.startswith(("+++", "---")))
 
 
 def fused_projs(h, w, dev):
@@ -330,14 +351,13 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     libs = {tag: json.loads(in_tree(tree, "--build").splitlines()[-1])
             for tag, tree in (("other", other), ("this", THIS_TREE))}
-    for kernel in KERNELS:
-        a, b = sass(libs["other"][kernel]), sass(libs["this"][kernel])
-        diff = list(difflib.unified_diff(a, b, "other", "this", lineterm="", n=1))
-        (out / f"{kernel}.sass.diff").write_text("\n".join(diff) + "\n")
-        changed = sum(1 for line in diff if line[:1] in "+-"
-                      and not line.startswith(("+++", "---")))
-        print(json.dumps({"kernel": kernel, "sass_lines": [len(a), len(b)],
-                          "changed_lines": changed}), flush=True)
+    for lib in sorted(set(libs["other"]) & set(libs["this"])):
+        a, b = sass(libs["other"][lib]), sass(libs["this"][lib])
+        da, db = sass(libs["other"][lib], True), sass(libs["this"][lib], True)
+        print(json.dumps({"library": lib, "sass_lines": [len(a), len(b)],
+                          "changed_lines": sass_diff(a, b, out / f"{lib}.sass.diff"),
+                          "changed_lines_demangled": sass_diff(
+                              da, db, out / f"{lib}.demangled.diff")}), flush=True)
     for tag, tree in (("other", other), ("this", THIS_TREE), ("this", THIS_TREE),
                       ("other", other)):
         flags = ["--time"] + (["--serving-only"] if args.serving_only else [])

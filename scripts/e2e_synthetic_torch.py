@@ -218,12 +218,9 @@ def serve(args, dev, model, datadir, outdir, report):
     from damvsnet_tpu_torch.core.pfm import read_pfm
     from damvsnet_tpu_torch.data.general_eval import GeneralEvalDataset
     from damvsnet_tpu_torch.infer.runner import DepthRunner, save_scene_depth
-    from damvsnet_tpu_torch.ops.kernels import fused_costvol, probstats, sweep_sampler
+    from damvsnet_tpu_torch.ops.kernels import COUNTED
 
-    counters = (fused_costvol.fused_adaptive_cost_volume, probstats.prob_volume_stats_fused,
-                fused_costvol.fused_adaptive_cost_volume_backward,
-                sweep_sampler.plane_sweep_sample, sweep_sampler.plane_sweep_variance)
-    before = [fn.launches for fn in counters]
+    before = [fn.launches for fn in COUNTED]
     eval_ds = GeneralEvalDataset(datadir, [SCAN], "test", args.nviews, ndepths=args.d0,
                                  interval_scale=1.0, max_h=args.height, max_w=args.width)
     if dev.type == "cuda":
@@ -234,7 +231,7 @@ def serve(args, dev, model, datadir, outdir, report):
     report["inference"] = {
         "views": n_views, "sec_per_view": round(steady, 4),
         "first_batch_sec_incl_warmup": round(batch_times[0], 2),
-        "launches": {fn.__name__: fn.launches - n for fn, n in zip(counters, before)}}
+        "launches": {fn.__name__: fn.launches - n for fn, n in zip(COUNTED, before)}}
     report["peak_gib"]["inference"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                                        if dev.type == "cuda" else None)
 

@@ -6,9 +6,12 @@
 Each tree (a checkout of the repository; default the one this script is
 in) runs in a process of its own, in the order given, so listing a parent
 tree around this one (parent / this / this / parent) compares two commits
-on the same card. The kernels are built in each tree first. Phases: 4b
-(K5, CostRegNet's prob conv, against F.conv3d, timed beside cuDNN), 5 (the
-adaptive serving cascade), 7 (the fused training step), 13 (the test CLI
+on the same card. The kernels are built in each tree first. Phases: 3 (K1
+against its plain version at the serving shapes, and past 16 source views),
+4 (K2), 4b (K5, CostRegNet's prob conv, against F.conv3d, timed beside
+cuDNN), 5 (the adaptive serving cascade), 6 (K3 at the training shapes), 7
+(the fused training step), 8 (K4's sampler and variance entry), 9 (the
+variance serving cascade), 13 (the test CLI
 on a synthetic DTU-layout scene), 14 (FMT serving),
 15 (FMT training, undetached), 16 (GeoReg / refine / U-Net serving), and
 the ranks' phases, each two processes of chip_smoke.py on the card: 17
@@ -43,24 +46,45 @@ from damvsnet_tpu_torch.utils.weights import load_bench_weights
 build.build()
 print("card:", c.nvidia_smi(), flush=True)
 dev = torch.device("cuda")
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
 sample = make_synthetic_sample(height=c.HEIGHT, width=c.WIDTH, nviews=c.NVIEWS,
                                ndepths=c.D0, with_gt=True, seed=c.SEED)
 smi, fmt = c.nvidia_smi(), None
 workdir = tempfile.TemporaryDirectory()
+
+
+def serving(**kw):
+    model = CascadeMVSNet(ndepths=c.NDEPTHS, compute_dtype=torch.bfloat16, device=dev, **kw)
+    load_bench_weights(model, c.SERVING_WEIGHTS)
+    return model
+
+
 for phase in sys.argv[1:]:
-    if phase == "4b":
-        model = CascadeMVSNet(ndepths=c.NDEPTHS, compute_dtype=torch.bfloat16, device=dev)
-        load_bench_weights(model, c.SERVING_WEIGHTS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if phase == "3":
+        model = serving()
         with torch.inference_mode():
-            c.phase_prob_conv(model, dev)
-        del model
+            c.phase_k1(sample, model, dev)
+        c.phase_k1_many_views(model, dev)
+    elif phase == "4":
+        with torch.inference_mode():
+            c.phase_k2(sample, dev)
+    elif phase == "4b":
+        with torch.inference_mode():
+            c.phase_prob_conv(serving(), dev)
     elif phase == "5":
-        model = CascadeMVSNet(ndepths=c.NDEPTHS, compute_dtype=torch.bfloat16, device=dev)
-        load_bench_weights(model, c.SERVING_WEIGHTS)
-        c.phase_cascade(sample, model, dev)
-        del model
+        c.phase_cascade(sample, serving(), dev)
+    elif phase == "6":
+        with torch.no_grad():
+            c.phase_k3(serving(), dev)
+    elif phase == "8":
+        model = serving(agg_mode="variance")
+        with torch.inference_mode():
+            c.phase_k4(sample, model, dev)
+            c.phase_k4_variance(sample, model, dev)
+            c.phase_k4_variance_many_views(model, dev)
+    elif phase == "9":
+        c.phase_variance(sample, serving(agg_mode="variance"), dev)
     elif phase == "7":
         c.phase_train(dev)
     elif phase == "13":
@@ -101,8 +125,8 @@ workdir.cleanup()
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("phases", nargs="+",
-                    choices=["4b", "5", "7", "13", "14", "15", "16", "17", "18", "19", "20", "21",
-                             "22", "23", "24", "25"])
+                    choices=["3", "4", "4b", "5", "6", "7", "8", "9", "13", "14", "15", "16",
+                             "17", "18", "19", "20", "21", "22", "23", "24", "25"])
     ap.add_argument("--trees", nargs="+", default=[REPO])
     args = ap.parse_args()
     for tree in args.trees:

@@ -20,8 +20,7 @@ import jax.numpy as jnp
 from damvsnet_tpu.model import CascadeMVSNet as JCascade
 from damvsnet_tpu_torch.infer import DepthRunner
 from damvsnet_tpu_torch.model import CascadeMVSNet
-from damvsnet_tpu_torch.ops.kernels import fused_costvol, probstats
-from damvsnet_tpu_torch.ops.kernels.sweep_sampler import plane_sweep_sample, plane_sweep_variance
+from damvsnet_tpu_torch.ops.kernels import COUNTED
 from damvsnet_tpu_torch.utils.weights import state_dict_from_flax
 from torch_helpers import cascade_batch, perturbed_flat, unflat
 
@@ -74,11 +73,9 @@ def test_depth_runner_serves_variance(both):
     """DepthRunner serves the variance model unchanged; on CPU tensors no
     kernel is launched."""
     batch, want, port = both
-    counters = (fused_costvol.fused_adaptive_cost_volume, probstats.prob_volume_stats_fused,
-                plane_sweep_sample, plane_sweep_variance)
-    counts = [fn.launches for fn in counters]
+    counts = [fn.launches for fn in COUNTED]
     out = DepthRunner(port, device="cpu")(batch)
-    assert counts == [fn.launches for fn in counters]
+    assert counts == [fn.launches for fn in COUNTED]
     np.testing.assert_allclose(out["depth"], want["stage3"]["depth"], atol=1e-4)
     np.testing.assert_allclose(out["stage2"]["photometric_confidence"],
                                want["stage2"]["photometric_confidence"], atol=1e-4)

@@ -601,7 +601,7 @@ def test_prob_conv_matches_conv(dev, shape, layout, dtype):
     x, m = _prob_inputs(dev, dtype, *shape, layout)
     n0 = prob_conv.prob_conv3d.launches
     with torch.inference_mode():
-        got = prob_conv.prob_conv3d(x, m)
+        got = prob_conv.prob_conv3d(x, m.weight)
         torch.cuda.synchronize()
         want = F.conv3d(x.float(), m.weight.to(dtype).float(), padding=1)
     assert prob_conv.prob_conv3d.launches == n0 + 1
@@ -611,17 +611,20 @@ def test_prob_conv_matches_conv(dev, shape, layout, dtype):
 
 def test_prob_conv_rejects_bad_input(dev):
     x, m = _prob_inputs(dev, torch.float32, 1, 4, 8, 8, "channels_last")
+    w = m.weight
     with torch.inference_mode():
         with pytest.raises(ValueError):  # float16
-            prob_conv.prob_conv3d(x.half(), m)
+            prob_conv.prob_conv3d(x.half(), w)
         with pytest.raises(ValueError):  # C = 4
-            prob_conv.prob_conv3d(x[:, :4], torch.nn.Conv3d(4, 1, 3, padding=1, bias=False).to(dev))
+            prob_conv.prob_conv3d(x[:, :4], w[:, :4])
         with pytest.raises(ValueError):  # the weight on the CPU
-            prob_conv.prob_conv3d(x, torch.nn.Conv3d(8, 1, 3, padding=1, bias=False))
-        with pytest.raises(ValueError):  # a bias
-            prob_conv.prob_conv3d(x, torch.nn.Conv3d(8, 1, 3, padding=1).to(dev))
+            prob_conv.prob_conv3d(x, w.cpu())
+        with pytest.raises(ValueError):  # two output channels
+            prob_conv.prob_conv3d(x, torch.cat([w, w]))
+        with pytest.raises(ValueError):  # a float16 weight
+            prob_conv.prob_conv3d(x, w.half())
     with pytest.raises(RuntimeError, match="no backward"):
-        prob_conv.prob_conv3d(x, m)  # the weight needs a gradient
+        prob_conv.prob_conv3d(x, w)  # the weight needs a gradient
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -633,8 +636,8 @@ def test_costregnet_prob_on_the_kernel(dev, dtype, monkeypatch):
     seen = []
     kernel = prob_conv.prob_conv3d
     monkeypatch.setattr(costreg, "prob_conv", types.SimpleNamespace(
-        CHANNELS=prob_conv.CHANNELS, prob_conv3d=lambda x, m: seen.append(
-            x.is_contiguous(memory_format=torch.channels_last_3d)) or kernel(x, m)))
+        CHANNELS=prob_conv.CHANNELS, prob_conv3d=lambda x, w: seen.append(
+            x.is_contiguous(memory_format=torch.channels_last_3d)) or kernel(x, w)))
     net = costreg.CostRegNet(8, 8).to(dev).eval()
     x, _ = _prob_inputs(dev, dtype, 2, 16, 24, 40, "channels_last")
     n0 = kernel.launches
@@ -683,7 +686,8 @@ def test_cascade_cr_base_chs_serves(dev, monkeypatch):
     got = runner(batch)
     assert prob_conv.prob_conv3d.launches == n0 + 1
     monkeypatch.setattr(costreg, "prob_conv", types.SimpleNamespace(
-        CHANNELS=prob_conv.CHANNELS, prob_conv3d=lambda x, m: costreg.conv(x, m)))
+        CHANNELS=prob_conv.CHANNELS,
+        prob_conv3d=lambda x, w: F.conv3d(x, w.to(x.dtype), padding=1)))
     want = runner(batch)
     assert prob_conv.prob_conv3d.launches == n0 + 1
     scale = float(sample["depth_values"].max() - sample["depth_values"].min())

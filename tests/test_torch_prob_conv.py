@@ -42,7 +42,7 @@ def test_wrapper_on_cpu_is_conv(dtype, layout):
         x = x.contiguous()
     n0 = prob_conv.prob_conv3d.launches
     with torch.inference_mode():
-        got = prob_conv.prob_conv3d(x, m)
+        got = prob_conv.prob_conv3d(x, m.weight)
         want = conv(x, m)
     assert prob_conv.prob_conv3d.launches == n0
     assert got.dtype == dtype and got.shape == (2, 1, 3, 17, 23)
@@ -78,8 +78,10 @@ def test_prob_route(monkeypatch, grad, x_grad, w_grad, plain, route):
     that reaches ``prob`` needs a gradient wherever an earlier block's
     weight does)."""
     calls = []
-    # on the CPU the kernel's wrapper runs its plain version, its own conv()
-    monkeypatch.setattr(prob_conv, "conv", lambda x, m: calls.append("kernel") or conv(x, m))
+    # on the CPU the kernel's wrapper runs its plain version
+    kernel = prob_conv.prob_conv3d
+    monkeypatch.setattr(prob_conv, "prob_conv3d",
+                        lambda x, w: calls.append("kernel") or kernel(x, w))
     monkeypatch.setattr(costreg, "conv", lambda x, m: calls.append("library") or conv(x, m))
     net = _net()
     net.requires_grad_(w_grad)
@@ -96,7 +98,9 @@ def test_prob_route_other_widths(monkeypatch, base, grad):
     keeps the library convolution for ``prob`` on every route, serving
     included: the kernel is built for 8 channels."""
     calls = []
-    monkeypatch.setattr(prob_conv, "conv", lambda x, m: calls.append("kernel") or conv(x, m))
+    kernel = prob_conv.prob_conv3d
+    monkeypatch.setattr(prob_conv, "prob_conv3d",
+                        lambda x, w: calls.append("kernel") or kernel(x, w))
     monkeypatch.setattr(costreg, "conv", lambda x, m: calls.append("library") or conv(x, m))
     net = _net(8, base=base)
     assert net.prob.in_channels == base

@@ -244,7 +244,7 @@ def port_train_step(batch, params, stats, ndepths, **config):
     import torch
     from damvsnet_tpu_torch.losses import cas_mvsnet_loss
     from damvsnet_tpu_torch.model import CascadeMVSNet
-    from damvsnet_tpu_torch.ops.kernels import fused_costvol, probstats, sweep_sampler
+    from damvsnet_tpu_torch.ops.kernels import COUNTED
     from damvsnet_tpu_torch.utils.weights import model_config
 
     model = CascadeMVSNet(ndepths=ndepths, device="cpu", **config)
@@ -253,11 +253,7 @@ def port_train_step(batch, params, stats, ndepths, **config):
     before = {k: v.clone() for k, v in model.state_dict().items()}
     tb = {k: ({s: torch.from_numpy(a) for s, a in v.items()} if isinstance(v, dict)
               else torch.from_numpy(v)) for k, v in batch.items()}
-    counters = (fused_costvol.fused_adaptive_cost_volume,
-                fused_costvol.fused_adaptive_cost_volume_backward,
-                probstats.prob_volume_stats_fused, sweep_sampler.plane_sweep_sample,
-                sweep_sampler.plane_sweep_variance)
-    counts = [fn.launches for fn in counters]
+    counts = [fn.launches for fn in COUNTED]
     model.train()
     # oneDNN's CPU convolution backward corrupts the heap at these shapes
     # (a segfault at stage 3); torch's own CPU convolutions are used instead
@@ -266,7 +262,7 @@ def port_train_step(batch, params, stats, ndepths, **config):
         losses = cas_mvsnet_loss(out, tb["imgs"], tb["proj_matrices"], tb["depth"],
                                  tb["mask"], use_cpc=True)
         losses[0].backward()
-    assert counts == [fn.launches for fn in counters]
+    assert counts == [fn.launches for fn in COUNTED]
     min_sigma = min(float(out[f"stage{s}"]["variance"].detach().min()) for s in (1, 2, 3))
     return {"losses": np.array([float(x.detach()) for x in losses], np.float32),
             "model": model, "before": before, "min_sigma": min_sigma}
