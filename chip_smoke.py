@@ -26,6 +26,12 @@ without printing its result line:
      version (the library convolution, cuDNN as the port ran it), cuDNN
      with ``cudnn.benchmark``, and cuDNN on the weight zero-padded to 8 and
      16 output channels;
+  4c. K6, FMT's linear attention, at the served FMT request's three
+     shapes (62,208 tokens; query and key batches 1 and 1, 4 and 4, 4 and
+     1: the reference's self layers, the sources' self and cross layers,
+     4 calls each), fp32 and bf16, against the attention in fp64 (K6_TOL);
+     in bf16 timed beside its plain version (the einsum chain, cuBLAS's
+     fp32 products as the port ran them);
   5. the serving cascade (1152x864, N=5, ndepths 64/32/8, bf16, the
      trained weights of weights/bench_ckpt.npz) answering 3 requests
      through DepthRunner, with every launch counter set to 0 just before
@@ -92,7 +98,8 @@ without printing its result line:
  14. FMT serving: phase 5's request with ``use_fmt`` (the trained weights
      and a seeded FMT pathway, printed as such): 1 warm-up and 3 timed
      requests with every launch counter set to 0 just before and read just
-     after (K1 and K2 3 times a request, K3 and K4 never); the depth against
+     after (K1, K2 and K5 3 times a request, K6 12 times, K3 and K4 never);
+     the depth against
      the plain versions in bf16 and, with TF32 off, in fp32 (bf16: at the
      larger of phase 5's limit and 1.5 times the route's own move under
      one-ulp changes of the camera matrices, see BF16_FLOOR_FACTOR); the FMT
@@ -387,6 +394,13 @@ PROB_TOL = 1e-5
 # channels (channels_last_3d, cudnn.benchmark), timed beside K5: alone, and
 # with the slice of channel 0 made contiguous, as K2 reads it
 PROB_PADDED_COUT = (8, 16)
+# K6, FMT's linear attention, against the attention in fp64 from the same
+# inputs: 1e-5 of the same attention of |v| (the fp32 sums' size over the
+# normaliser; the kernel orders the sums over 62,208 tokens otherwise),
+# bf16 one bf16 step of the reference besides (the kernel rounds once)
+K6_KERNEL, K6_TOL, FMT_TOKENS = "linear_attn_", 1e-5, 216 * 288
+# a served FMT request's calls: (query batch, key batch) and calls of each
+K6_CALLS = (((1, 1), 4), ((4, 4), 4), ((4, 1), 4))
 # name keys of the kernels in profiler traces; the template argument after
 # the dtype is C, which names the stage (C = 32 / 16 / 8 at stages 1 / 2 / 3)
 K1_KERNEL, K2_KERNEL, K3_KERNEL, K4_KERNEL, K4_VARIANCE_KERNEL = (
@@ -668,6 +682,75 @@ def phase_prob_conv(model, dev):
                 row["bound_ms"], row["bound_by"] = prob_conv_bound_ms(1, d, h, w, 2)
             print("K5", json.dumps(row), flush=True)
             rows.append(row)
+    return rows
+
+
+def linear_attention_bound_ms(bq, bk, tokens, elem):
+    """K6: q, k and v read once and the output written once in the compute
+    dtype (32 channels a token); fp32 operations: a key token's 8 heads
+    each 4 phi (2 operations), 16 FMAs and 4 adds, a query token's 4 phi,
+    20 FMAs, a division and 4 products."""
+    bytes_ = (2 * bq + 2 * bk) * tokens * 32 * elem
+    ops = 8 * (bk * tokens * (4 * 2 + 16 * 2 + 4) + bq * tokens * (4 * 2 + 20 * 2 + 1 + 4))
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_fp64(q, k, v, eps=1e-6):
+    """The linear attention of ``nn/fmt.py`` in fp64."""
+    import torch
+    import torch.nn.functional as F
+    q, k, v = F.elu(q.double()) + 1.0, F.elu(k.double()) + 1.0, v.double()
+    rep = q.shape[0] // k.shape[0]
+    kv = torch.einsum("nshd,nshm->nhmd", k, v).repeat_interleave(rep, dim=0)
+    ksum = k.sum(dim=1).repeat_interleave(rep, dim=0)
+    z = 1.0 / (torch.einsum("nlhd,nhd->nlh", q, ksum) + eps)
+    return torch.einsum("nlhd,nhmd->nlhm", q, kv) * z[..., None]
+
+
+def phase_linear_attention(dev):
+    """K6 at the served FMT request's three shapes (K6_CALLS), fp32 and
+    bf16, seeded normal q, k and v, against the attention in fp64 at
+    K6_TOL; in bf16 timed beside the plain chain. Each row is one call of
+    its shape; ``calls``: how many a request makes."""
+    import torch
+    from damvsnet_tpu_torch.ops.kernels import linear_attention as la
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = []
+    for (bq, bk), calls in K6_CALLS:
+        q32 = torch.randn(bq, FMT_TOKENS, 8, 4, generator=gen, device=dev)
+        k32, v32 = (torch.randn(bk, FMT_TOKENS, 8, 4, generator=gen, device=dev)
+                    for _ in range(2))
+        for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            got = la.fused_linear_attention(q, k, v)
+            torch.cuda.synchronize()
+            want = attention_fp64(q, k, v)
+            tol = K6_TOL * attention_fp64(q, k, v.abs()).abs()
+            if tag == "bf16":  # one bf16 step at |want|
+                tol = tol + torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+            err = (got.double() - want).abs()
+            row = {"shape": [bq, bk, FMT_TOKENS], "calls": calls, "dtype": tag,
+                   "max_abs": float(err.max()), "max_err_over_tol": float((err / tol).max()),
+                   "repeats_bitwise": bool(torch.equal(got, la.fused_linear_attention(q, k, v)))}
+            check(bool((err <= tol).all()) and row["repeats_bitwise"],
+                  f"K6 {bq}x{bk} {tag}: {json.dumps(row)}")
+            if tag == "bf16":  # the serving dtype: the kernel table's times
+                row["ms"] = cuda_ms(lambda: la.fused_linear_attention(q, k, v), 50)
+                row["kernel_ms"] = device_ms(lambda: la.fused_linear_attention(q, k, v),
+                                             K6_KERNEL)
+                row["plain_ms"] = cuda_ms(lambda: la.linear_attention_plain(q, k, v), 20)
+                row["plain_device_ms"] = device_profile(
+                    lambda: la.linear_attention_plain(q, k, v))[0]
+                row["bound_ms"], row["bound_by"] = linear_attention_bound_ms(
+                    bq, bk, FMT_TOKENS, 2)
+            print("K6", json.dumps(row), flush=True)
+            rows.append(row)
+        del q32, k32, v32, q, k, v, got, want, tol, err
+        torch.cuda.empty_cache()
+    request = {key: sum(r["calls"] * r[key] for r in rows if r["dtype"] == "bf16")
+               for key in ("ms", "kernel_ms", "plain_ms", "plain_device_ms", "bound_ms")}
+    print("K6 a request", json.dumps(request), flush=True)
     return rows
 
 
@@ -1859,7 +1942,8 @@ def phase_fmt_serving(sample, dev):
     warm_ms, times, out, launches, peak_gib = timed_requests(runner, batch)
     check_launches("FMT cascade", launches, {"fused_adaptive_cost_volume": 3,
                                              "prob_volume_stats_fused": 3,
-                                             "prob_conv3d": 3}, REQUESTS)
+                                             "prob_conv3d": 3,
+                                             "fused_linear_attention": 12}, REQUESTS)
     depth = out["depth"]
     check(depth.shape == (1, HEIGHT, WIDTH), f"FMT depth shape {depth.shape}")
     check(bool(np.isfinite(depth).all()), "non-finite FMT depth")
@@ -3218,6 +3302,7 @@ def main():
         k1 = phase_k1(sample, model, dev)
         k2 = phase_k2(sample, dev)
         k5 = phase_prob_conv(model, dev)
+        k6 = phase_linear_attention(dev)
     phase_k1_many_views(model, dev)
     torch.cuda.empty_cache()
     launches, request_ms = phase_cascade(sample, model, dev)
@@ -3276,6 +3361,9 @@ def main():
         """bf16 rows summed over the stages (one request's or one step's
         launches); library_ms where one PyTorch call computes the same."""
         main_rows = [r for r in rows if r["dtype"] == "bf16" and not r.get("align_corners")]
+        main_rows = [{k: r.get("calls", 1) * x if k in ("ms", "plain_ms", "kernel_ms",
+                                                         "bound_ms") else x
+                      for k, x in r.items()} for r in main_rows]  # rows of K6: calls each
         by_path = {"serving": launches[counter], "training": train_launches[counter],
                    "serving_variance": var_launches[counter],
                    "training_nonfused": nonfused_launches[counter],
@@ -3327,6 +3415,10 @@ def main():
                 "damvsnet_tpu_torch/ops/kernels/csrc/prob_conv.cu",
                 "none: the JAX package leaves CostRegNet's prob conv to XLA",
                 "prob_conv3d"),
+        summary("fused_linear_attention", k6,
+                "damvsnet_tpu_torch/ops/kernels/csrc/linear_attention.cu",
+                "none: the JAX package leaves FMT's linear attention to XLA's einsums",
+                "fused_linear_attention"),
     ]
     print(f"cascade: {request_ms:.3f} ms per request (bf16, {smi})", flush=True)
     print(f"training: {step_ms:.3f} ms per step, peak {train_peak:.2f} GiB "

@@ -276,7 +276,7 @@ class CascadeMVSNet(nn.Module):
             feats = self._view_features(imgs)
         if self.use_fmt:
             with span("cascade.fmt"):
-                feats = self.FMT_with_pathway(feats, self.compute_dtype)
+                feats = self.FMT_with_pathway(feats, self.compute_dtype, self.plain)
 
         outputs = {}
         depth = sigma = prob_volume = None

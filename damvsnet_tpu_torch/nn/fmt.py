@@ -5,9 +5,12 @@ damvsnet_tpu/nn/fmt.py; TransMVSNet lineage).
     per-head d x d summary KV = sum_s K_s V_s^T and the normalizer's
     sum_s K_s run over every token (62,208 at the serving stage 1), so
     they, and the whole attention, are computed in fp32 and the result
-    rounded once to the queries' dtype. With ``sp_group``, a process group
-    whose size divides the tokens, an attention with as many keys as
-    queries runs sequence-parallel over its ranks
+    rounded once to the queries' dtype. Where no gradient is needed, at 8
+    heads of 4 (TransMVSNet's widths), in fp32 or bf16, it is the kernel
+    pair K6 (``ops/kernels/linear_attention.py``); under autograd, at other
+    widths and with ``plain``, the plain einsum chain. With ``sp_group``, a
+    process group whose size divides the tokens, an attention with as many
+    keys as queries runs sequence-parallel over its ranks
     (``parallel/fmt_sp.py``; JAX's ``sp_axis``).
   * ``AttentionLayer`` / ``EncoderLayer``: post-norm residual blocks with a
     2x FFN, dropout 0. LayerNorm's epsilon is flax's 1e-6 (the reference's
@@ -45,6 +48,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.kernels import linear_attention as la
+from ..ops.kernels._common import DTYPE_CODES
 from ..ops.resize import resize_bilinear
 from ..parallel.fmt_sp import sequence_parallel_applies, sequence_parallel_linear_attention
 from ..train.profiler import span
@@ -54,21 +59,19 @@ from .posenc import sine_position_encoding
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
 
 
-def linear_attention(q, k, v, eps: float = 1e-6):
+def linear_attention(q, k, v, eps: float = 1e-6, plain: bool = False):
     """q [Bq, L, H, D], k and v [Bk, S, H, D] -> [Bq, L, H, D] in q's dtype.
     Bk divides Bq: query batch entry i attends to key batch entry i // (Bq
     / Bk), so the sources of one scene, batched view-major inside each
-    scene, share their reference's summaries."""
-    dtype = q.dtype
-    q = F.elu(q.float()) + 1.0
-    k = F.elu(k.float()) + 1.0
-    kv = torch.einsum("nshd,nshm->nhmd", k, v.float())
-    ksum = k.sum(dim=1)
-    rep = q.shape[0] // k.shape[0]
-    if rep > 1:
-        kv, ksum = kv.repeat_interleave(rep, dim=0), ksum.repeat_interleave(rep, dim=0)
-    z = 1.0 / (torch.einsum("nlhd,nhd->nlh", q, ksum) + eps)
-    return (torch.einsum("nlhd,nhmd->nlhm", q, kv) * z[..., None]).to(dtype)
+    scene, share their reference's summaries. The kernel pair K6 where it
+    applies (the widths it is built for, fp32 or bf16) unless a gradient is
+    needed (it has no backward) or ``plain``; else the plain chain."""
+    takes = q.dtype in DTYPE_CODES and all(
+        t.dtype == q.dtype and tuple(t.shape[2:]) == (la.HEADS, la.HEAD_DIM) for t in (q, k, v))
+    if (plain or not takes or (torch.is_grad_enabled()
+                               and (q.requires_grad or k.requires_grad or v.requires_grad))):
+        return la.linear_attention_plain(q, k, v, eps)
+    return la.fused_linear_attention(q, k, v, eps)
 
 
 def dense(x: torch.Tensor, m: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -91,7 +94,7 @@ class AttentionLayer(nn.Module):
         self.value_projection = nn.Linear(d_model, d_model)
         self.out_projection = nn.Linear(d_model, d_model)
 
-    def forward(self, queries, keys, values, dtype):
+    def forward(self, queries, keys, values, dtype, plain=False):
         n, l, _ = queries.shape
         h = self.n_heads
         q = dense(queries, self.query_projection, dtype).view(n, l, h, -1)
@@ -101,7 +104,7 @@ class AttentionLayer(nn.Module):
         if sequence_parallel_applies(self.sp_group, l, k.shape[1]):
             out = sequence_parallel_linear_attention(q, k, v, self.sp_group)
         else:
-            out = linear_attention(q, k, v)
+            out = linear_attention(q, k, v, plain=plain)
         return dense(out.reshape(n, l, -1), self.out_projection, dtype)
 
 
@@ -114,8 +117,8 @@ class EncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, x, source, dtype):
-        x = layer_norm(x + self.attention(x, source, source, dtype), self.norm1)
+    def forward(self, x, source, dtype, plain=False):
+        x = layer_norm(x + self.attention(x, source, source, dtype, plain), self.norm1)
         y = dense(torch.relu(dense(x, self.linear1, dtype)), self.linear2, dtype)
         return layer_norm(x + y, self.norm2)
 
@@ -134,18 +137,18 @@ class FMT(nn.Module):
             if p.dim() > 1:
                 nn.init.xavier_uniform_(p)
 
-    def ref_forward(self, ref_feature, dtype):
+    def ref_forward(self, ref_feature, dtype, plain=False):
         """ref_feature [B, H, W, C] -> each self layer's output, [B, H, W, C]."""
         b, h, w, c = ref_feature.shape
         x = sine_position_encoding(ref_feature).reshape(b, h * w, c)
         outs = []
         for layer, name in zip(self.layers, self.layer_names):
             if name == "self":
-                x = layer(x, x, dtype)
+                x = layer(x, x, dtype, plain)
                 outs.append(x.view(b, h, w, c))
         return outs
 
-    def src_forward(self, ref_feature_list, src_feature, dtype):
+    def src_forward(self, ref_feature_list, src_feature, dtype, plain=False):
         """Alternating self / cross-to-ref(i // 2). src_feature [B*V, H, W,
         C], the V sources of each scene consecutive; ref_feature_list as
         ``ref_forward`` returns it, batch B."""
@@ -153,7 +156,7 @@ class FMT(nn.Module):
         refs = [r.reshape(r.shape[0], h * w, c) for r in ref_feature_list]
         x = sine_position_encoding(src_feature).reshape(bv, h * w, c)
         for i, (layer, name) in enumerate(zip(self.layers, self.layer_names)):
-            x = layer(x, x if name == "self" else refs[i // 2], dtype)
+            x = layer(x, x if name == "self" else refs[i // 2], dtype, plain)
         return x.view(bv, h, w, c)
 
 
@@ -175,17 +178,18 @@ class FMTWithPathway(nn.Module):
     def _upsample_add(self, x, y):
         return resize_bilinear(x, y.shape[1:3], align_corners=False) + y
 
-    def forward(self, feats: dict, dtype: torch.dtype) -> dict:
+    def forward(self, feats: dict, dtype: torch.dtype, plain: bool = False) -> dict:
         """feats {stage: [B, N, H, W, C]} (view 0 the reference) -> the same
         structure, every stage in fp32 (see the module's docstring); the
-        Dense layers run in ``dtype``, the compute dtype."""
+        Dense layers run in ``dtype``, the compute dtype; ``plain``: the
+        attention's plain chain in place of K6."""
         x1 = feats["stage1"]
         b, n = x1.shape[:2]
         with span("cascade.fmt.ref"):
-            refs = self.FMT.ref_forward(x1[:, 0], dtype)
+            refs = self.FMT.ref_forward(x1[:, 0], dtype, plain)
         with span("cascade.fmt.src"):
             srcs = self.FMT.src_forward(refs, x1[:, 1:].reshape(b * (n - 1), *x1.shape[2:]),
-                                        dtype)
+                                        dtype, plain)
         with span("cascade.fmt.pathway"):
             s1 = torch.cat([refs[-1][:, None], srcs.view(b, n - 1, *srcs.shape[1:])], dim=1)
             flat = lambda t: t.reshape(b * n, *t.shape[2:])  # noqa: E731

@@ -26,6 +26,11 @@ OTHER_TREE is another checkout of the repository, or of its
         that of every device activity of the call), and K2 on a
         fp32 and a bf16 cost (a tree whose K2 takes only fp32 gets the
         bf16 cost upcast first, as its cascade did);
+      - K6, FMT's linear attention, at a served FMT request's three shapes
+        (62,208 tokens, bf16; query and key batches 1 and 1, 4 and 4, 4
+        and 1, 4 calls each), beside its plain chain (``nn/fmt.py``'s
+        einsums, every device activity of the call); a tree without K6
+        times its plain chain alone;
       - unless --serving-only, K3 and K1 at the three training shapes
         (512x640, B=4, N=5, bf16,
         the synthetic scenes' cameras, smooth random features, a seeded
@@ -58,6 +63,8 @@ from pathlib import Path
 THIS_TREE = Path(__file__).resolve().parent.parent
 K1_KEY, K3_KEY = "fused_costvol_kernel", "fused_costvol_bwd_kernel"
 K2_KEY, K4_KEY, K4_VARIANCE_KEY = "probstats_kernel", "sweep_sampler_kernel", "sweep_variance_kernel"
+K6_KEY, FMT_TOKENS = "linear_attn_", 216 * 288
+K6_CALLS = (((1, 1), 4), ((4, 4), 4), ((4, 1), 4))  # (query, key batch), calls a request
 ANY_KERNEL = ""  # every device activity of the call
 STAGES = ((216, 288, 32, 64), (432, 576, 16, 32), (864, 1152, 8, 8))  # h, w, C, D
 TRAIN_STAGES = ((128, 160, 32, 64), (256, 320, 16, 32), (512, 640, 8, 8))
@@ -232,6 +239,30 @@ def time_serving_k4_k2(dev):
         torch.cuda.empty_cache()
 
 
+def time_serving_k6(dev):
+    """K6 and the plain chain at a served FMT request's shapes: ms a call."""
+    import importlib.util
+    import torch
+    from damvsnet_tpu_torch.nn import fmt
+    has_k6 = importlib.util.find_spec("damvsnet_tpu_torch.ops.kernels.linear_attention")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for (bq, bk), calls in K6_CALLS:
+        q = torch.randn(bq, FMT_TOKENS, 8, 4, generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn(bk, FMT_TOKENS, 8, 4, generator=gen, device=dev).bfloat16()
+                for _ in range(2))
+        row = {"kernel": "K6", "path": "serving", "shape": [bq, bk, FMT_TOKENS], "calls": calls}
+        with torch.inference_mode():
+            if has_k6:
+                from damvsnet_tpu_torch.ops.kernels import linear_attention as la
+                row["ms"], row["kernel_ms"] = timed(
+                    lambda: la.fused_linear_attention(q, k, v), K6_KEY, 50)
+                plain = la.linear_attention_plain
+            else:
+                plain = fmt.linear_attention
+            row["plain_ms"], row["plain_device_ms"] = timed(lambda: plain(q, k, v), ANY_KERNEL)
+        print(json.dumps(row), flush=True)
+
+
 def reckoned_atomics(projs, dv, h, w, c):
     """16-byte atomics of a scatter of every in-image tap, 4 channels each."""
     import torch
@@ -320,12 +351,13 @@ def time_training(dev):
 
 
 def time_kernels(training=True):
-    """(In a tree's process.) K1, K4 and K2 at the serving shapes; K3 and
-    K1 at the training shapes."""
+    """(In a tree's process.) K1, K4, K2 and K6 at the serving shapes; K3
+    and K1 at the training shapes."""
     import torch
     dev = torch.device("cuda")
     time_serving_k1(dev)
     time_serving_k4_k2(dev)
+    time_serving_k6(dev)
     if training:
         time_training(dev)
 

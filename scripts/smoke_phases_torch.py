@@ -9,7 +9,8 @@ tree around this one (parent / this / this / parent) compares two commits
 on the same card. The kernels are built in each tree first. Phases: 3 (K1
 against its plain version at the serving shapes, and past 16 source views),
 4 (K2), 4b (K5, CostRegNet's prob conv, against F.conv3d, timed beside
-cuDNN), 5 (the adaptive serving cascade), 6 (K3 at the training shapes), 7
+cuDNN), 4c (K6, FMT's linear attention, against fp64, timed beside the
+plain chain), 5 (the adaptive serving cascade), 6 (K3 at the training shapes), 7
 (the fused training step), 8 (K4's sampler and variance entry), 9 (the
 variance serving cascade), 13 (the test CLI
 on a synthetic DTU-layout scene), 14 (FMT serving),
@@ -72,6 +73,9 @@ for phase in sys.argv[1:]:
     elif phase == "4b":
         with torch.inference_mode():
             c.phase_prob_conv(serving(), dev)
+    elif phase == "4c":
+        with torch.inference_mode():
+            c.phase_linear_attention(dev)
     elif phase == "5":
         c.phase_cascade(sample, serving(), dev)
     elif phase == "6":
@@ -125,7 +129,7 @@ workdir.cleanup()
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("phases", nargs="+",
-                    choices=["3", "4", "4b", "5", "6", "7", "8", "9", "13", "14", "15", "16",
+                    choices=["3", "4", "4b", "4c", "5", "6", "7", "8", "9", "13", "14", "15", "16",
                              "17", "18", "19", "20", "21", "22", "23", "24", "25"])
     ap.add_argument("--trees", nargs="+", default=[REPO])
     args = ap.parse_args()

@@ -143,7 +143,8 @@ def test_serving_answers_match(numbers, number):
 
 def test_fmt_left_out_exceeds_the_tolerance(sides, monkeypatch):
     """Each of the eight layers returning its input: the comparison tells."""
-    monkeypatch.setattr(port_fmt.EncoderLayer, "forward", lambda self, x, source, dtype: x)
+    monkeypatch.setattr(port_fmt.EncoderLayer, "forward",
+                        lambda self, x, source, dtype, plain=False: x)
     numbers = _numbers(*sides)
     assert max(numbers.values()) > 100 * ANSWER_TOL, numbers
 

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from damvsnet_tpu_torch.nn import costreg
 from damvsnet_tpu_torch.ops.costvol import variance_cost_volume
 from damvsnet_tpu_torch.ops.kernels import _common, fused_costvol, prob_conv, probstats
+from damvsnet_tpu_torch.ops.kernels import linear_attention as la
 from damvsnet_tpu_torch.ops.kernels.sweep_sampler import plane_sweep_sample, plane_sweep_variance
 from damvsnet_tpu_torch.ops.regression import prob_volume_stats
 from damvsnet_tpu_torch.ops.warp import plane_sweep_grid, plane_sweep_warp
@@ -695,3 +696,112 @@ def test_cascade_cr_base_chs_serves(dev, monkeypatch):
         torch.testing.assert_close(got[key]["depth"], want[key]["depth"], rtol=0,
                                    atol=1e-4 * scale)
     torch.testing.assert_close(got["depth"], want["depth"], rtol=0, atol=1e-4 * scale)
+
+
+# ---- K6, FMT's linear attention (ops/kernels/linear_attention.py) ----
+#
+# Against the attention computed in fp64 from the same inputs (bf16 inputs
+# are exact in fp64), at chip_smoke.py's K6_TOL: the kernel's fp32 sums over
+# the tokens are ordered otherwise than any other route, so its error is held
+# relative to the same attention of |v| (the sums' absolute size over the
+# normaliser); bf16 adds one bf16 step of the reference (the kernel rounds
+# once; the fp32 error can cross a rounding boundary).
+_TOKENS = 216 * 288  # stage 1 of a 1152x864 view: 62,208
+
+
+def _attention_inputs(dev, dtype, bq, bk, lq, s, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(bq, lq, 8, 4, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(bk, s, 8, 4, generator=g, device=dev).to(dtype) for _ in range(2))
+    return q, k, v
+
+
+def _assert_attention_close(got, q, k, v):
+    from chip_smoke import K6_TOL, attention_fp64
+    want = attention_fp64(q, k, v)
+    tol = K6_TOL * attention_fp64(q, k, v.abs()).abs()
+    if got.dtype == torch.bfloat16:  # one bf16 step at |want|: 2^(e - 8), want = f 2^e
+        tol = tol + torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+    err = (got.double() - want).abs()
+    assert bool((err <= tol).all()), (f"max |err| {float(err.max())}, "
+                                      f"{float((err / tol).max())} x its limit")
+
+
+@pytest.mark.parametrize("batches", [(1, 1), (4, 4), (4, 1)], ids=lambda b: "q%dk%d" % b)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_attention_matches_fp64(dev, batches, dtype):
+    """fmt_serve's three shapes: the reference's self layers (1, 1), the
+    sources' self layers (4, 4) and their cross layers (4, 1)."""
+    q, k, v = _attention_inputs(dev, dtype, batches[0], batches[1], _TOKENS, _TOKENS)
+    n0 = la.fused_linear_attention.launches
+    with torch.inference_mode():
+        got = la.fused_linear_attention(q, k, v)
+        torch.cuda.synchronize()
+    assert la.fused_linear_attention.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape and got.is_contiguous()
+    _assert_attention_close(got, q, k, v)
+
+
+@pytest.mark.parametrize("tokens", [(1001, 777), (37, 5), (64, 4096 + 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_attention_ragged_tokens(dev, tokens, dtype):
+    """Token counts that are no multiple of a pass (32 tokens) nor of a
+    chunk, queries and keys of other lengths, 2 queries a key batch
+    entry."""
+    q, k, v = _attention_inputs(dev, dtype, 4, 2, *tokens, seed=1)
+    with torch.inference_mode():
+        got = la.fused_linear_attention(q, k, v)
+    _assert_attention_close(got, q, k, v)
+
+
+def test_linear_attention_repeats(dev):
+    """No atomics: two calls give the same bits."""
+    q, k, v = _attention_inputs(dev, torch.bfloat16, 4, 1, _TOKENS, _TOKENS, seed=2)
+    with torch.inference_mode():
+        a = la.fused_linear_attention(q, k, v)
+        b = la.fused_linear_attention(q, k, v)
+    assert torch.equal(a, b)
+
+
+def test_linear_attention_rejects_bad_input(dev):
+    q, k, v = _attention_inputs(dev, torch.float32, 4, 2, 64, 64)
+    with torch.inference_mode():
+        with pytest.raises(ValueError):  # not contiguous
+            la.fused_linear_attention(q.transpose(0, 1).contiguous().transpose(0, 1), k, v)
+        with pytest.raises(ValueError):  # 4 bytes past 16-byte alignment
+            shifted = torch.empty(q.numel() + 1, device=dev)[1:].view(q.shape)
+            la.fused_linear_attention(shifted.copy_(q), k, v)
+        with pytest.raises(ValueError):  # k on the CPU
+            la.fused_linear_attention(q, k.cpu(), v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        la.fused_linear_attention(q, k.requires_grad_(), v)
+
+
+def _fmt_features(dev, h=24, w=32, views=5, seed=3):
+    """{stage: [1, views, H, W, C]} in bf16 at the FPN's widths."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {f"stage{s + 1}": torch.randn(1, views, h << s, w << s, 32 >> s, generator=g,
+                                         device=dev).bfloat16() for s in range(3)}
+
+
+def test_fmt_pathway_on_the_kernel(dev):
+    """The FMT pathway in bf16 under no_grad: 12 launches a forward (the
+    reference's 4 self layers, the sources' 4 self and 4 cross layers),
+    every stage against the plain chain at the bf16 tolerance of
+    tests/test_torch_fmt.py::test_fmt_pathway_bf16_rounds_where_jax_does;
+    under autograd none."""
+    from damvsnet_tpu_torch.nn.fmt import FMTWithPathway
+    torch.manual_seed(0)
+    port = FMTWithPathway(8).to(dev).eval()
+    feats = _fmt_features(dev)
+    n0 = la.fused_linear_attention.launches
+    with torch.no_grad():
+        got = port(feats, torch.bfloat16)
+        assert la.fused_linear_attention.launches == n0 + 12
+        want = port(feats, torch.bfloat16, plain=True)
+    assert la.fused_linear_attention.launches == n0 + 12
+    for s in got:
+        assert got[s].dtype == torch.float32
+        torch.testing.assert_close(got[s], want[s], rtol=0, atol=0.05)
+    port(feats, torch.bfloat16)  # the weights need a gradient: the plain chain
+    assert la.fused_linear_attention.launches == n0 + 12
